@@ -1,0 +1,18 @@
+"""qwen3-32b [dense] — qk_norm, GQA kv=8 [hf:Qwen/Qwen3-8B family]."""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=25600,
+    vocab=151_936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B",
+)
