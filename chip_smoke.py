@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--layers N] [--new-tokens N] [--seed S]
+    python3 chip_smoke.py [--layers N] [--new-tokens N] [--train-layers N]
+                          [--seed S]
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -8,22 +9,32 @@ Phases (each raises on failure; the script exits non-zero):
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    nvcc (one process per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card: the
-   reference sweeps, ``causal=False``, lengths no tile divides, and the
-   main path's shape;
-4. time each kernel at the main path's shape (CUDA events, median), its
-   plain version, one PyTorch library call computing the same function
-   (a yardstick only: the port never calls it) and the bound, the larger
-   of bytes over 3.35 TB/s and operations over 989 TFLOP/s (H100 SXM,
-   dense bf16);
-5. the main path: SSD-offloaded cached decode of qwen3-4b at full width
-   and ``--layers`` depth (random weights from ``--seed``) through
+   reference sweeps, plus for attention ``causal=False``, lengths no tile
+   divides and the prefill shape, and for the overflow screen nd shapes,
+   regions whose edges fall mid-vector and the embedding gradient's size;
+4. time each kernel at its main path's shape (CUDA events, median of 20),
+   its plain version, one PyTorch library call computing the same
+   function (a yardstick only: the port never calls it) and the bound,
+   the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s
+   (H100 SXM, dense bf16);
+5. cached decode: SSD-offloaded decode of qwen3-4b at full width and
+   ``--layers`` depth (random weights from ``--seed``) through
    ``OffloadedDecoder.generate`` under the ``memascend`` policy with full
-   overlap; the kernel launch counts are zeroed just before and read just
-   after; then the first-token logits are held against a device-resident
-   forward of the same weights through the plain attention;
-6. print the ``kernels`` JSON line, the card line, and the result line.
+   overlap; the attention kernel's launch count is zeroed just before and
+   read just after; then the first-token logits are held against a
+   device-resident forward of the same weights through the plain
+   attention;
+6. training: three ``OffloadSession.train_step``s and one ``eval_loss`` of
+   qwen3-4b at full width and ``--train-layers`` depth on one seeded batch,
+   ``memascend`` with device-resident checkpoints and full overlap; the
+   overflow kernel's launch count is zeroed just before and read just
+   after; the loss, the landed gradients and one master after step 1 are
+   held against a device-resident plain forward/backward and a plain
+   AdamW on the card, and a second session with an Inf in one weight must
+   skip its step;
+7. print the ``kernels`` JSON line, the card line, and the result line.
 
-Needs one CUDA device.  Kernel builds and the SSD store live under
+Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
 """
 
@@ -33,6 +44,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,11 +59,15 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import DecodeSpec, OffloadPolicy  # noqa: E402
+from repro_torch.core import (DecodeSpec, OffloadPolicy,  # noqa: E402
+                              OffloadSession)
+from repro_torch.core import overflow as host_overflow  # noqa: E402
 from repro_torch.core.dtypes import cast_host, to_torch  # noqa: E402
 from repro_torch.core.model_adapter import make_offloadable_lm  # noqa: E402
 from repro_torch.core.nvme import DirectNVMeEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.overflow_check import (  # noqa: E402
+    overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     swa_attention_cuda, swa_attention_plain)
 from repro_torch.models.attention import gqa_project_qkv  # noqa: E402
@@ -68,6 +84,24 @@ BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 # row-max scale, far past it
 LOGIT_TOL = 8.0 * 2.0 ** -8
 BATCH, PROMPT, BUCKET = 4, 512, 64
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 3
+# Adam lr of the training phase: large enough that three steps on one
+# batch move bf16 weights (a 1e-4 step is about one bf16 ULP of a 0.02
+# weight) so the loss visibly falls
+TRAIN_LR = 1e-3
+# step-1 loss vs the device-resident plain forward of the same bf16
+# weights: the same ops on the same values (the streamed block recompute
+# runs them again), so only launch-order effects remain; 1e-3 is a
+# quarter of a bf16 ULP of the loss, far below what a wrong weight,
+# gradient or checkpoint would move it
+LOSS_RTOL = 1e-3
+# landed gradients vs the resident backward: 8 bf16 ULPs of each tensor's
+# max abs (the grads are bf16 before the fp32 cast the D2H lands)
+GRAD_TOL = 8.0 * 2.0 ** -8
+# one master after step 1 vs torch AdamW on the card from the same fp32
+# master and landed gradient: the same fp32 formula in another operation
+# order, max |diff| over max |ref|
+ADAM_RTOL = 1e-6
 
 
 def card_line() -> str:
@@ -151,6 +185,103 @@ def time_attention(gen) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+# -- phase 3 + 4: the overflow-screen kernel ----------------------------------
+
+def _main_grad_elems() -> int:
+    cfg = get_config("qwen3-4b")
+    return cfg.vocab * cfg.d_model       # the embedding's gradient
+
+
+def _ov_agree(x, lo=0, hi=None, expect=None) -> bool:
+    """Kernel verdict on a fresh flag == plain verdict (== ``expect``)."""
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device)
+    got = bool(overflow_flag_cuda_(x, flag, lo, hi).item())
+    want = bool(overflow_check_plain(x, lo, hi))
+    if got != want or (expect is not None and got != expect):
+        raise AssertionError(f"overflow_check {x.dtype} n {x.numel()} "
+                             f"[{lo}, {hi}): kernel {got}, plain {want}, "
+                             f"expected {expect}")
+    return got
+
+
+def check_overflow(gen) -> tuple[float, int]:
+    """Kernel vs plain on the card: the reference sweeps
+    (tests/test_kernels.py: fp32/bf16/fp16 x n, +Inf/-Inf/NaN at the
+    first, middle and last index, finfo.max and -0.0 never trigger), nd
+    shapes, regions whose edges fall mid-vector (payload just inside and
+    just outside, also from a misaligned start), a set flag staying set,
+    and the main path's largest gradient.  Returns (max abs error of the
+    verdicts, cases) — any disagreement raises, so the error is 0."""
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for n in (1, 127, 128, 129, 65_536, 100_001):
+            base = torch.randn(n, device="cuda", generator=gen).to(dtype)
+            _ov_agree(base, expect=False)
+            big = base.clone()
+            big[n // 2] = torch.finfo(dtype).max
+            big[0] = -0.0
+            _ov_agree(big, expect=False)
+            cases += 2
+            for payload in (float("inf"), float("-inf"), float("nan")):
+                for pos in sorted({0, n // 2, n - 1}):
+                    x = base.clone()
+                    x[pos] = payload
+                    _ov_agree(x, expect=True)
+                    cases += 1
+        for lo, hi in ((3, 61), (1, 2), (7, 40), (5, 997), (0, 1000),
+                       (9, 9)):
+            for start in (0, 1):          # 1: a misaligned first element
+                for pos, inside in ((lo, True), (hi - 1, True),
+                                    (lo - 1, False), (hi, False)):
+                    if not 0 <= pos < 1000 or (inside and hi == lo):
+                        continue
+                    x = torch.zeros(1000 + start, dtype=dtype,
+                                    device="cuda")[start:]
+                    x[pos] = float("inf")
+                    _ov_agree(x, lo, hi, expect=inside)
+                    cases += 1
+    for shape in ((4, 4), (3, 5, 7), (2, 2, 2, 2)):
+        x = torch.randn(shape, device="cuda", generator=gen)
+        if overflow_check_cuda(x) or overflow_check_plain(x):
+            raise AssertionError(f"overflow_check flagged a clean {shape}")
+        x.view(-1)[0] = float("-inf")
+        if not (overflow_check_cuda(x) and overflow_check_plain(x)):
+            raise AssertionError(f"overflow_check missed -inf in {shape}")
+        cases += 2
+    clean = torch.randn(4096, device="cuda", generator=gen)
+    flag = torch.ones(1, dtype=torch.int32, device="cuda")
+    if overflow_flag_cuda_(clean, flag).item() != 1:
+        raise AssertionError("a set overflow flag was cleared")
+    n = _main_grad_elems()
+    x = torch.randn(n, device="cuda", generator=gen)
+    _ov_agree(x, expect=False)
+    x[-1] = float("inf")
+    _ov_agree(x, expect=True)
+    cases += 3
+    print(f"  overflow_check: {cases} cases agree with the plain version "
+          f"(fp32/bf16/fp16 sweeps, nd shapes, mid-vector regions, "
+          f"{n} fp32)")
+    return 0.0, cases
+
+
+def time_overflow(gen) -> dict:
+    """Times at the main path's largest gradient: the embedding's fp32
+    grad, clean (the kernel reads all of it)."""
+    n = _main_grad_elems()
+    x = torch.randn(n, device="cuda", generator=gen)
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: overflow_flag_cuda_(x, flag))
+    if flag.item() != 0:
+        raise AssertionError("overflow_check flagged clean data")
+    plain_ms = cuda_ms(lambda: overflow_check_plain(x))
+    library_ms = cuda_ms(lambda: torch.isfinite(x).all())
+    # one read of each element; a mask and a compare an element are far
+    # below the card's integer rate
+    bytes_ms = 1e3 * 4 * n / HBM_BYTES_PER_S
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bytes_ms, "bound_by": "bytes"}
 
 
 # -- phase 5: the main path ----------------------------------------------------
@@ -280,11 +411,7 @@ def run_main_path(args, workdir: str) -> dict:
     plain_steps = args.new_tokens - 2
     decode_s -= step_ms / 1e3
     per_token_ms = 1e3 * decode_s / plain_steps
-    # device-side events only (kernels and copies): the host ops that
-    # launched them carry the same time again
-    device_events = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
+    busy_ms, device_events = _device_busy_ms(prof)
     print("  profiled decode step, device time by kernel/copy (top 8):")
     for e in sorted(device_events,
                     key=lambda e: -e.self_device_time_total)[:8]:
@@ -322,15 +449,283 @@ def run_main_path(args, workdir: str) -> dict:
     return out
 
 
+# -- phase 6: training -----------------------------------------------------------
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _train_policy(workdir: str, n_params: int, name: str):
+    """memascend with device-resident checkpoints on a direct-NVMe store
+    sized for master + m + v (fp32) + bf16 compute weights, 14 B/param,
+    plus slack."""
+    capacity = -(-(14 * n_params) // 2) + (512 << 20)
+    root = os.path.join(workdir, name)
+    return (OffloadPolicy.preset("memascend")
+            .with_overrides(offload_checkpoints=False)
+            .with_adam(lr=TRAIN_LR, weight_decay=0.01)
+            .with_store(factory=lambda: DirectNVMeEngine(
+                root, n_devices=2, device_capacity=capacity)).build())
+
+
+def resident_train_reference(model, tokens, labels, device, watched):
+    """Loss and the ``watched`` parameter grads of a plain device-resident
+    forward and backward of the same bf16 weights through the same
+    applies: no streaming, no checkpoints, one autograd graph."""
+    dev = torch.device(device)
+    params = [{k: to_torch(cast_host(v, "bfloat16"), torch.bfloat16)
+               .to(dev).requires_grad_() for k, v in u.params.items()}
+              for u in model.units]
+    tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    lab = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    with torch.enable_grad():
+        h = model.embed_apply(params[0], tok)
+        for p in params[1:-1]:
+            h = model.block_apply(p, h)
+        loss = model.head_loss(params[-1], h, lab)
+        loss.backward()
+    index = {u.name: i for i, u in enumerate(model.units)}
+    return loss.item(), {(unit, k): params[index[unit]][k].grad.float()
+                         for unit, k in watched}
+
+
+def adamw_reference(init: np.ndarray, grad: np.ndarray, adam, device):
+    """One plain torch AdamW step on the card from the fp32 master."""
+    p = torch.from_numpy(np.array(init, np.float32)).to(device)
+    p.requires_grad_()
+    p.grad = torch.from_numpy(np.array(grad, np.float32)).to(device)
+    opt = torch.optim.AdamW([p], lr=adam.lr, betas=(adam.beta1, adam.beta2),
+                            eps=adam.eps, weight_decay=adam.weight_decay)
+    opt.step()
+    return p.detach().cpu().numpy()
+
+
+def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              n_layers=args.train_layers)
+    free = shutil.disk_usage(workdir).free
+    print(f"training: {cfg.name} d_model {cfg.d_model} vocab {cfg.vocab}, "
+          f"depth {cfg.n_layers} of 36 (--train-layers), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps; free "
+          f"disk under build/: {free / 1e9:.1f} GB")
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device=device)
+    rng = np.random.default_rng(args.seed + 1)
+    tokens = rng.integers(0, cfg.vocab, size=(TRAIN_BATCH, TRAIN_SEQ),
+                          dtype=np.int64)
+    labels = np.roll(tokens, -1, axis=1)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    n_tensors = sum(len(u.params) for u in model.units)
+    print(f"  {n_params} parameters in {n_tensors} tensors; store needs "
+          f"{14 * n_params / 1e9:.1f} GB")
+    if free < 14 * n_params + (2 << 30):
+        raise RuntimeError(f"not enough disk for the training store: "
+                           f"{free} B free")
+    check_block, check_keys = model.units[1].name, ("attn.w_q", "ffn.w_down")
+    watched = [("embed", "embed"), *((check_block, k) for k in check_keys),
+               ("head", "head")]
+    t0 = time.perf_counter()
+    policy = _train_policy(workdir, n_params, "train_store")
+    with OffloadSession(model, policy) as session:
+        setup_s = time.perf_counter() - t0
+        flat_pinned = torch.from_numpy(session.flat[:1024]).is_pinned()
+        _sync(device)
+        overflow_flag_cuda_.launches = 0
+        host_overflow.check_region.calls = 0
+        steps, walls = [], []
+        for step in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            if step == TRAIN_STEPS - 1:
+                # the last step under the profiler: device busy share
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    m = dict(session.train_step(tokens, labels))
+                    _sync(device)
+            else:
+                m = dict(session.train_step(tokens, labels))
+                _sync(device)
+            walls.append(time.perf_counter() - t1)
+            steps.append(m)
+            print(f"  step {step + 1}: loss {m['loss']:.6f} "
+                  f"{walls[-1]:.2f} s, overflowed {m['overflowed']}, "
+                  f"applied {m['applied']}")
+            if step == 0:
+                # step 1's landed grads (the barrier drained the writer;
+                # step 2's write of a unit waits for step 1's Adam of it)
+                landed = {}
+                for unit, key in watched:
+                    off, size, shape = \
+                        session._flat_offsets[f"{unit}/{key}"]
+                    landed[(unit, key)] = session.flat[off:off + size] \
+                        .reshape(shape).copy()
+                master1 = session.master_param(check_block, check_keys[0])
+        launches = overflow_flag_cuda_.launches
+        host_checks = host_overflow.check_region.calls
+        # the last step's Adam stage runs on past train_step's return
+        t2 = time.perf_counter()
+        session.synchronize()
+        adam_tail_s = time.perf_counter() - t2
+        t2 = time.perf_counter()
+        eval_loss = session.eval_loss(tokens, labels)
+        eval_s = time.perf_counter() - t2
+        io = session.store.stats.snapshot()
+        pinned_stats = session.tracker.component("pinned")
+        requested, reserved = pinned_stats.live_requested, \
+            pinned_stats.live_allocated
+        optim_io = session.optimizer.last_io_bytes
+        peak_host = session.tracker.peak_allocated
+        adam = policy.adam
+
+    # (e) one launch per gradient tensor per step, no host region scan
+    if launches != n_tensors * TRAIN_STEPS or host_checks != 0:
+        raise AssertionError(f"overflow_check launched {launches} times "
+                             f"for {n_tensors} tensors x {TRAIN_STEPS} "
+                             f"steps; host check_region ran {host_checks}")
+    if not all(m["applied"] and not m["overflowed"] for m in steps):
+        raise AssertionError("a clean training step was skipped")
+    # (d) the loss falls on the repeated batch
+    losses = [m["loss"] for m in steps]
+    if not (np.isfinite(losses).all() and losses[0] > losses[1] > losses[2]
+            and np.isfinite(eval_loss) and eval_loss < losses[0]):
+        raise AssertionError(f"losses {losses}, eval {eval_loss} do not "
+                             f"fall")
+    # (a), (b) against the resident forward/backward
+    ref_loss, ref_grads = resident_train_reference(model, tokens, labels,
+                                                   device, watched)
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    print(f"  step-1 loss {losses[0]:.6f} vs resident {ref_loss:.6f}: rel "
+          f"{loss_rel:.3e} (tol {LOSS_RTOL:g})")
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"step-1 loss differs from the resident "
+                             f"forward: {loss_rel}")
+    grad_rel = {}
+    for key in watched:
+        ref = ref_grads[key].cpu().numpy()
+        scale = float(np.abs(ref).max())
+        diff = float(np.abs(landed[key] - ref).max())
+        grad_rel[f"{key[0]}/{key[1]}"] = diff / scale
+        print(f"  landed grad {key[0]}/{key[1]}: max diff {diff:.3e}, "
+              f"{diff / scale:.3e} of max |g| {scale:.3e} (tol "
+              f"{GRAD_TOL:.3e})")
+        if not diff <= GRAD_TOL * scale:
+            raise AssertionError(f"landed gradient {key} differs from the "
+                                 f"resident backward")
+    del ref_grads
+    # (c) one master after step 1 against torch AdamW on the card
+    init = model.units[1].params[check_keys[0]]
+    ref_master = adamw_reference(init, landed[(check_block,
+                                               check_keys[0])], adam, device)
+    adam_rel = float(np.abs(master1 - ref_master).max()
+                     / np.abs(ref_master).max())
+    print(f"  {check_block}/{check_keys[0]} master after step 1 vs torch "
+          f"AdamW: {adam_rel:.3e} of max (tol {ADAM_RTOL:g})")
+    if not adam_rel <= ADAM_RTOL:
+        raise AssertionError(f"step-1 master differs from AdamW: {adam_rel}")
+    del landed, model
+
+    # (f) an Inf in one weight: the step is flagged and skipped
+    skip = check_overflow_skip(args, workdir, device)
+
+    busy_ms, device_events = _device_busy_ms(prof)
+    print("  profiled train step, device time by kernel/copy (top 8):")
+    for e in sorted(device_events,
+                    key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.key[:60]:60s} {e.self_device_time_total / 1e3:9.3f} "
+              f"ms x{e.count}")
+    # Step 1 drains its Adam for the checks, so step 2 starts on an idle
+    # pipeline; step 3 (profiled) is the one steady-state step: it waits
+    # for step 2's Adam at its fetch gates.  Its own wall time is the
+    # denominator (the profiler's start-up is small against it).
+    step_ms = 1e3 * walls[-1]
+    out = {
+        "train_layers": cfg.n_layers, "train_params": n_params,
+        "train_setup_s": setup_s, "step_s": walls,
+        "adam_tail_s": adam_tail_s,
+        "losses": losses, "eval_loss": eval_loss, "eval_s": eval_s,
+        "resident_loss": ref_loss, "loss_rel_diff": loss_rel,
+        "grad_rel_diff": grad_rel, "adamw_rel_diff": adam_rel,
+        **{f"{k}_per_step": [m[k] for m in steps] for k in (
+            "fetch_wait_s", "h2d_wait_s", "gradwrite_drain_s",
+            "optim_gate_s", "optim_prefetch_wait_s", "overflow_screen_s",
+            "optimizer_io_bytes", "peak_host_bytes")},
+        "optimizer_io_bytes_last_step": optim_io,
+        "peak_host_bytes": peak_host,
+        "pinned_requested_bytes": requested,
+        "pinned_reserved_bytes": reserved,
+        "flat_buffer_is_pinned": flat_pinned,
+        "store_read_GB": io["bytes_read"] / 1e9,
+        "store_read_s": io["read_seconds"],
+        "store_write_GB": io["bytes_written"] / 1e9,
+        "store_write_s": io["write_seconds"],
+        "overflow_launches": launches, "host_region_checks": host_checks,
+        "skip_step": skip,
+        "step_device_busy_ms": busy_ms or None,
+        "device_idle_share": (1.0 - busy_ms / step_ms) if busy_ms else None,
+    }
+    for k, v in out.items():
+        print(f"  {k}: {v}")
+    if device == "cuda" and not flat_pinned:
+        raise AssertionError("the gradient flat buffer is not page-locked")
+    return out
+
+
+def check_overflow_skip(args, workdir: str, device: str) -> dict:
+    """A 2-layer session at full width whose block_000 ``ffn.w_down``
+    holds one Inf: its step must be flagged and skipped, every master
+    kept, and the scaler backed off as DynamicLossScaler.update does."""
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=2)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device=device)
+    w = model.units[1].params["ffn.w_down"]
+    w[0, 0] = np.inf
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    tokens = np.random.default_rng(args.seed + 2).integers(
+        0, cfg.vocab, size=(TRAIN_BATCH, TRAIN_SEQ), dtype=np.int64)
+    t0 = time.perf_counter()
+    with OffloadSession(model, _train_policy(workdir, n_params,
+                                             "skip_store")) as session:
+        scaler = session.scaler
+        scale0 = scaler.scale
+        m = session.train_step(tokens, np.roll(tokens, -1, axis=1))
+        kept = session.master_param(model.units[1].name, "ffn.w_down")
+        embed = session.master_param("embed", "embed")
+        backed_off = max(scale0 * scaler.backoff_factor, scaler.min_scale)
+        result = {"overflowed": m["overflowed"], "applied": m["applied"],
+                  "loss_scale": m["loss_scale"],
+                  "n_overflows": scaler.n_overflows,
+                  "seconds": time.perf_counter() - t0}
+    print(f"  Inf in {model.units[1].name}/ffn.w_down: {result}")
+    if not (m["overflowed"] and not m["applied"]
+            and scaler.n_overflows == 1 and m["loss_scale"] == backed_off):
+        raise AssertionError(f"the Inf step was not skipped: {result}")
+    if not (np.array_equal(kept.view(np.uint32), w.view(np.uint32))
+            and np.array_equal(embed, model.units[0].params["embed"])):
+        raise AssertionError("a skipped step changed the masters")
+    return result
+
+
+def _device_busy_ms(prof) -> tuple[float, list]:
+    """Device-side events only (kernels and copies): the host ops that
+    launched them carry the same time again."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3, events
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=4,
                     help="qwen3-4b depth (the full model has 36)")
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--train-layers", type=int, default=4,
+                    help="qwen3-4b depth of the training phase")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if args.new_tokens < 3 or args.layers < 1:
-        ap.error("needs --new-tokens >= 3 and --layers >= 1")
+    if args.new_tokens < 3 or args.layers < 1 or args.train_layers < 1:
+        ap.error("needs --new-tokens >= 3, --layers >= 1 and "
+                 "--train-layers >= 1")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -365,18 +760,33 @@ def main() -> int:
           f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, "
           f"sdpa {timing['library_ms']:.4f} ms, bound "
           f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    ov_err, _cases = check_overflow(gen)
+    ov_timing = time_overflow(gen)
+    print(f"  overflow_check at {_main_grad_elems()} fp32: "
+          f"{ov_timing['ms']:.4f} ms, plain {ov_timing['plain_ms']:.4f} ms, "
+          f"isfinite().all() {ov_timing['library_ms']:.4f} ms, bound "
+          f"{ov_timing['bound_ms']:.4f} ms (bytes)")
+    torch.cuda.empty_cache()
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_store_") as workdir:
         main_path = run_main_path(args, workdir)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_train_") as workdir:
+        train = run_train_path(args, workdir)
 
     kernels = [{
         "name": "swa_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:104",
         "launches": main_path["swa_launches"], "max_abs_err": max_err,
-        **timing}]
+        **timing}, {
+        "name": "overflow_check", "route": "cuda",
+        "source": "src/repro_torch/csrc/overflow_check.cu",
+        "replaces": "src/repro/kernels/overflow_check.py:71",
+        "launches": train["overflow_launches"], "max_abs_err": ov_err,
+        **ov_timing}]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

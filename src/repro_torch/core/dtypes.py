@@ -61,3 +61,20 @@ def cast_host(values: np.ndarray, name: str) -> np.ndarray:
             values = values.copy()
         return to_host(torch.from_numpy(values).to(torch.bfloat16))
     return np.asarray(values, _HOST[name])
+
+
+def bf16_to_f32_(bits: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """Widen bf16 bits into the fp32 array ``out`` in place (exact: a bf16
+    value is the top half of its fp32 word).  No temporary is made."""
+    words = out.view(np.uint32)
+    words[:] = bits
+    words <<= 16
+    return out
+
+
+def f32_to_bf16_(values: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """Round fp32 ``values`` to nearest even into the bf16-bit array
+    ``out`` in place (the rounding of ``ml_dtypes`` and torch)."""
+    src = torch.from_numpy(values)
+    torch.from_numpy(out.view(np.int16)).view(torch.bfloat16).copy_(src)
+    return out

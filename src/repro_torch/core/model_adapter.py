@@ -1,4 +1,5 @@
-"""Adapter: ModelConfig -> OffloadableModel for SSD-offloaded cached decode.
+"""Adapter: ModelConfig -> OffloadableModel for SSD-offloaded training and
+cached decode.
 
 Port of the dense path of ``src/repro/core/model_adapter.py``.  The
 session streams *unstacked* per-block parameter dicts (one block on the
@@ -24,11 +25,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import gqa_prefill, gqa_step
-from repro_torch.models.layers import (embed_lookup, fan_in_init, lm_logits,
-                                       rms_norm, trunc_normal)
-from repro_torch.models.transformer import (LATER, apply_ffn, ffn_kind,
-                                            init_layer_params, layer_period,
-                                            mixer_kind)
+from repro_torch.models.layers import (cross_entropy, embed_lookup,
+                                       fan_in_init, lm_logits, rms_norm,
+                                       trunc_normal)
+from repro_torch.models.transformer import (LATER, apply_ffn, apply_layer,
+                                            ffn_kind, init_layer_params,
+                                            layer_period, mixer_kind)
 from .offload_engine import OffloadableModel, OffloadUnit
 
 
@@ -102,9 +104,15 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
         return embed_lookup(params["embed"].to(compute_dtype), tokens,
                             scale=cfg.embed_scale)
 
+    def block_apply(params, h):
+        return apply_layer(cfg, kinds, params, h)
+
     def head_logits(params, h):
         h = rms_norm(h, params["final_norm"].to(compute_dtype), cfg.rms_eps)
         return lm_logits(h, params["head"].to(compute_dtype))
+
+    def head_loss(params, h, labels):
+        return cross_entropy(head_logits(params, h), labels)
 
     def block_prefill(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
@@ -124,6 +132,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
 
     return OffloadableModel(units=own, embed_apply=embed_apply,
                             class_of=ModelConfig.class_of_param, device=dev,
+                            block_apply=block_apply, head_loss=head_loss,
                             head_logits=head_logits,
                             block_prefill=block_prefill,
                             block_step=block_step, kv_shape=kv_shape)

@@ -15,8 +15,11 @@ Two presets package the paper's comparison: ``zero-infinity`` (fixed pool +
 pow2 pinned allocator + chained overflow check + per-tensor-file store) vs
 ``memascend`` (adaptive pool + alignment-free allocator + fused check +
 direct NVMe engine); ``memascend-bf16`` adds the half-precision optimizer.
-Activation-checkpoint tiers and MoE expert paging (policy fields of the
-reference) come with the training and MoE slices.
+The activation-checkpoint fields (``offload_checkpoints``, ``act_policy``)
+are validated as in the reference; the session runs device-resident
+checkpoints only (``offload_checkpoints=False``) — the host/ssd/recompute
+tiers come with the activation-offload slice.  MoE expert paging comes with
+the MoE slice.
 """
 
 from __future__ import annotations
@@ -61,6 +64,9 @@ class OffloadableModel:
 
     apply signatures (``params`` is {name: tensor on ``device``}):
       embed_apply(params, tokens)              -> h
+      block_apply(params, h)                   -> h (training forward;
+                                                  differentiable)
+      head_loss(params, h, labels)             -> scalar fp32 loss
       head_logits(params, h)                   -> fp32 logits
       block_prefill(params, h)                 -> h, k, v (cached decode
                                                   prompt pass)
@@ -76,6 +82,8 @@ class OffloadableModel:
     embed_apply: Callable
     class_of: Callable[[str], str]
     device: torch.device
+    block_apply: Callable | None = None
+    head_loss: Callable | None = None
     head_logits: Callable | None = None
     block_prefill: Callable | None = None
     block_step: Callable | None = None
@@ -145,8 +153,15 @@ class OffloadPolicy:
     * ``"h2d"``  — adds the H2D staging worker + double-buffered device
       slots: weight and KV-window copies hide under the previous block's
       compute,
-    * ``"full"`` — in serving, the same as ``"h2d"`` (its extra legs — the
-      gradient writer and the optimizer worker — are training's).
+    * ``"full"`` — adds the gradient writer thread (backward D2H overlaps
+      the next block's re-fetch/recompute) and runs the optimizer stage on
+      its own worker so step *k*'s host Adam interleaves with step *k+1*'s
+      forward prefetch window; in serving, the same as ``"h2d"``.
+
+    ``offload_checkpoints`` / ``act_policy`` pick where each block's
+    activation checkpoint lives between forward and backward (see
+    :func:`repro_torch.core.stream_plan.resolve_act_policy`);
+    ``offload_checkpoints=False`` keeps every checkpoint on the device.
     """
 
     name: str
@@ -157,7 +172,10 @@ class OffloadPolicy:
     adam: AdamConfig = field(default_factory=AdamConfig)
     inflight_blocks: int = 2
     lookahead: int | None = None
+    offload_checkpoints: bool = True   # offloaded gradient checkpointing
     overlap: str = "full"              # "sync" | "h2d" | "full" (Fig. 6)
+    act_policy: object = "host"        # "host" | "ssd" | "recompute" |
+    #                                    dict/sequence of per-block tiers
 
     def __post_init__(self) -> None:
         if not self.name or not isinstance(self.name, str):
@@ -184,6 +202,30 @@ class OffloadPolicy:
         if self.overlap not in ("sync", "h2d", "full"):
             raise ValueError(f"overlap must be one of 'sync'|'h2d'|'full', "
                              f"got {self.overlap!r}")
+        _act_tiers = ("host", "ssd", "recompute")
+        if isinstance(self.act_policy, str):
+            if self.act_policy not in _act_tiers:
+                raise ValueError(
+                    f"act_policy must be one of {_act_tiers} (or a "
+                    f"per-block dict/sequence), got {self.act_policy!r} — "
+                    f"device-resident checkpoints are selected via "
+                    f"offload_checkpoints=False")
+        elif isinstance(self.act_policy, dict):
+            bad = sorted(t for t in self.act_policy.values()
+                         if t not in _act_tiers)
+            if bad:
+                raise ValueError(f"act_policy has unknown tier(s) {bad}; "
+                                 f"expected {_act_tiers}")
+        else:
+            try:
+                tiers = list(self.act_policy)
+            except TypeError:
+                raise ValueError(f"act_policy must be a tier name, dict, or "
+                                 f"sequence, got {self.act_policy!r}") from None
+            bad = sorted(t for t in tiers if t not in _act_tiers)
+            if bad:
+                raise ValueError(f"act_policy has unknown tier(s) {bad}; "
+                                 f"expected {_act_tiers}")
         if self.adam.state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"state_dtype must be float32|bfloat16, got "
                              f"{self.adam.state_dtype!r}")
@@ -278,6 +320,13 @@ class PolicyBuilder:
     def with_overlap(self, mode: str) -> "PolicyBuilder":
         """Pipeline-overlap ablation level: 'sync' | 'h2d' | 'full'."""
         self._overrides["overlap"] = mode
+        return self
+
+    def with_activations(self, policy) -> "PolicyBuilder":
+        """Per-block activation-checkpoint tier: 'host' | 'ssd' |
+        'recompute', or a dict/sequence of per-block tiers (see
+        OffloadPolicy.act_policy)."""
+        self._overrides["act_policy"] = policy
         return self
 
     def with_overrides(self, **field_overrides) -> "PolicyBuilder":

@@ -1,10 +1,10 @@
 """OffloadSession: owns the offload lifecycle and executes StreamPlans.
 
-Port of the serve mode of ``src/repro/core/session.py``.  One session = one
-open store/allocator/pool/swapper stack over an
-:class:`~repro_torch.core.offload_engine.OffloadableModel`; a context
-manager, so the pinned arena and in-flight SSD reads are always drained and
-returned, success or error.
+Port of ``src/repro/core/session.py`` (train, eval and cached-decode
+modes).  One session = one open store/allocator/pool/swapper(/optimizer)
+stack over an :class:`~repro_torch.core.offload_engine.OffloadableModel`; a
+context manager, so the pinned arena, gradient flat buffer and in-flight
+SSD reads are always drained and returned, success or error.
 
 Execution is plan-driven (:mod:`repro_torch.core.stream_plan`) with
 **lookahead-N pipelining**: at a :class:`FetchOp` the executor first issues
@@ -27,14 +27,41 @@ flight), the compute stream waits on it, and ``record_stream`` keeps the
 caching allocator from handing the copy's memory to the side stream while
 compute still reads it.
 
-Cached decode (``prefill`` / ``decode_step``) runs over a paged spill-able
-KV cache (:mod:`repro_torch.core.kv_cache`) whose page slots come from the
-same pool arena.  Training (``mode="train"``) comes with the training slice.
+Training (``train_step``, the default ``mode="train"``) runs the
+``compile_train`` plan: the streamed forward (block inputs kept on the
+device as checkpoints), the head loss and its gradients, the reverse
+backward (each block recomputed from its checkpoint under autograd), the
+embedding backward, the overflow screen, the loss scaler and the host Adam
+over SSD-resident state (:class:`~repro_torch.core.optimizer.OffloadedAdam`).
+Under ``overlap="full"`` the gradient write-back runs on the
+``offload-gradwrite`` worker and Adam on ``offload-optim`` (with its state
+reads on ``offload-optim-prefetch``), so step *k*'s Adam overlaps step
+*k+1*'s forward; per-unit readiness futures gate the next fetch and the
+next gradient write of each unit.
+
+Gradient write-back (:meth:`OffloadSession._write_grads`).  The executor
+casts each unit's device gradients to fp32 on the compute stream and
+records an event.  On CUDA the writer then, on a side stream that waits on
+the event, screens every fp32 gradient tensor for Inf/NaN with the Hopper
+kernel (:func:`repro_torch.kernels.ops.overflow_flag_`) into the unit's
+device int32 flag, copies the tensors into the page-locked fp32 flat buffer
+with ``non_blocking`` DMAs (``record_stream`` guards their memory), copies
+the flag after them, and synchronises that stream's event before anything
+reads the region or the flag.  On the CPU the same steps run with the
+kernel's plain version.  The OverflowCheckOp barrier only ORs the per-unit
+verdicts (the partition-OR invariant of :mod:`repro_torch.core.overflow`).
+
+Cached decode (``prefill`` / ``decode_step``, ``mode="serve"``) runs over a
+paged spill-able KV cache (:mod:`repro_torch.core.kv_cache`) whose page
+slots come from the same pool arena.  Activation-checkpoint offload
+(host/ssd/recompute tiers) comes with the activation-offload slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 import time
 from collections import deque
 from concurrent.futures import Future
@@ -42,31 +69,51 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from .buffer_pool import KV_CLASS
 from .dtypes import cast_host, to_host, to_torch, torch_dtype
 from .kv_cache import DecodeSpec, SpillableKVCache
+from .loss_scale import DynamicLossScaler
 from .memory_tracker import MemoryTracker
-from .overlap import DeviceSlots, OverlapStats, SerialWorker
-from .stream_plan import (ComputeOp, FetchOp, KVReadOp, KVWriteOp, ReleaseOp,
-                          StreamPlan, compile_decode_cached, compile_prefill)
+from .optimizer import OffloadedAdam
+from .overflow import check_region, flat_overflow_check
+from .overlap import DeviceSlots, OverlapStats, SerialWorker, done_future
+from .stream_plan import (ComputeOp, FetchOp, GradWriteOp, KVReadOp,
+                          KVWriteOp, OptimStepOp, OverflowCheckOp, ReleaseOp,
+                          StreamPlan, compile_decode_cached, compile_eval,
+                          compile_prefill, compile_train, resolve_act_policy)
 from .swapper import ParameterSwapper
 
-COMPUTE_SUFFIX = ".compute"    # store key suffix of compute-precision weights
+COMPUTE_SUFFIX = OffloadedAdam.COMPUTE   # store key suffix of compute weights
+ACT_LATER = ("activation-checkpoint offload (host/ssd/recompute tiers) is "
+             "not ported yet: it comes with the activation-offload slice; "
+             "build the policy with offload_checkpoints=False to keep every "
+             "checkpoint on the device")
 
 
 class _ExecState:
-    """Per-plan-run bindings and carried activations."""
+    """Per-plan-run bindings and carried activations/cotangents."""
 
-    __slots__ = ("tokens", "h", "logits", "live", "live_slots", "h2d",
+    __slots__ = ("tokens", "labels", "scale", "h", "dh",
+                 "loss", "logits", "live", "live_slots", "h2d", "grads",
+                 "checkpoints", "overflowed", "apply", "optim_begun",
                  "kv", "kv_live", "kv_append", "kv_stage", "kv_slots",
                  "kv_time", "cache_len", "last_pos", "stage_seq")
 
-    def __init__(self, tokens: torch.Tensor):
+    def __init__(self, tokens: torch.Tensor,
+                 labels: torch.Tensor | None = None, scale: float = 1.0):
         self.tokens = tokens
-        self.h = self.logits = None
+        self.labels = labels
+        self.scale = float(scale)        # loss scale of this run's grads
+        self.h = self.dh = self.loss = self.logits = None
         self.live: dict[str, dict] = {}     # unit -> device params
         self.live_slots: dict[str, tuple] = {}  # unit -> device-slot tokens
         self.h2d: dict[str, deque] = {}     # unit -> staged-fetch futures
+        self.grads: dict[str, dict] = {}    # unit -> device grads
+        self.checkpoints: dict[str, torch.Tensor] = {}  # unit -> block input
+        self.overflowed: bool | None = None  # set by OverflowCheckOp
+        self.apply: bool | None = None       # set by OverflowCheckOp
+        self.optim_begun = False             # begin_step() sequenced once
         self.kv: SpillableKVCache | None = None
         self.kv_live: dict[str, tuple] = {}    # unit -> device (k, v) window
         self.kv_append: dict[str, tuple] = {}  # unit -> device (k, v) to land
@@ -85,38 +132,36 @@ class OffloadSession:
     """Executes StreamPlans over one open offload stack (context manager)."""
 
     def __init__(self, model, policy, *, tracker: MemoryTracker | None = None,
-                 mode: str = "serve",
+                 mode: str = "train",
                  decode: DecodeSpec | None = None) -> None:
-        if mode == "train":
-            raise NotImplementedError(
-                "mode='train' is not ported yet: the PyTorch port's "
-                "training step comes with the training slice")
-        if mode != "serve":
-            raise ValueError(f"mode must be 'serve' (or 'train'), got "
-                             f"{mode!r}")
+        if mode not in ("train", "serve"):
+            raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
         self.model = model
         self.policy = policy
+        self.mode = mode
         self.device = torch.device(model.device)
         self.tracker = tracker or MemoryTracker()
         self.store = policy.store_factory()
         # The store is open from here on: if any later construction step
-        # fails, __enter__ never runs and no caller can close() — release
-        # whatever was acquired before re-raising.
+        # fails (disk-full while seeding optimizer state, MemoryError on
+        # the flat buffer), __enter__ never runs and no caller can close()
+        # — release whatever was acquired before re-raising.
         self._closed = False
         try:
-            self._construct(model, policy, decode)
+            self._construct(model, policy, mode, decode)
         except BaseException:
             self.close()
             raise
 
     # pre-share: runs inside __init__, before any worker thread exists
-    def _construct(self, model, policy,  # analyze: pre-share
+    def _construct(self, model, policy, mode: str,  # analyze: pre-share
                    decode: DecodeSpec | None) -> None:
         # The backing follows the device, explicitly: page-locked host
         # memory when the weights go to a CUDA device, plain numpy on CPU.
+        cuda = self.device.type == "cuda"
         self.allocator = policy.allocator_cls(
             tracker=self.tracker, component="pinned",
-            backing="cuda" if self.device.type == "cuda" else "numpy")
+            backing="cuda" if cuda else "numpy")
         cd_host = policy.adam.compute_np_dtype
         self.compute_dtype = torch_dtype(policy.adam.compute_dtype)
         census = model.census(policy.inflight_blocks,
@@ -149,15 +194,61 @@ class OffloadSession:
         self.swapper = ParameterSwapper(self.store, self.pool, class_of={
             f"{unit.name}/{key}{COMPUTE_SUFFIX}": model.class_of(key)
             for unit in model.units for key in unit.params})
+        self.scaler = DynamicLossScaler()
+        if policy.adam.compute_dtype != "float16":
+            self.scaler.scale = 1.0  # only fp16 needs scaling; check stays on
         lookahead = policy.lookahead or policy.inflight_blocks
         self.lookahead = max(1, min(lookahead, policy.inflight_blocks))
 
+        # Per-block activation-checkpoint tiers (train mode), resolved once
+        # so a bad act_policy fails here, not at the first train_step.
+        # offload_checkpoints=False keeps every checkpoint on the device —
+        # the only tier this port runs so far.
+        block_names = [u.name for u in model.units[1:-1]]
+        self._act_tiers: tuple[str, ...] = ()
+        if mode == "train" and block_names:
+            self._act_tiers = resolve_act_policy(
+                block_names,
+                policy.act_policy if policy.offload_checkpoints
+                else "device")
+            offloaded = sorted({t for t in self._act_tiers if t != "device"})
+            if offloaded:
+                raise NotImplementedError(f"act tier(s) {offloaded}: "
+                                          f"{ACT_LATER}")
+
+        # Full-overlap machinery (policy.overlap; see module docstring and
+        # repro_torch.core.overlap).  Created before the store writes below
+        # so a mid-construction failure still finds them on close().
+        self.overlap = policy.overlap
         self._ostats = OverlapStats()
+        self._optim_lock = threading.Lock()
+        self._optim_futures: dict[str, Future] = {}  # guarded-by: _optim_lock
+        self._optim_io_completed = 0                 # guarded-by: _optim_lock
         self._device_slots: DeviceSlots | None = None
         self._h2d: SerialWorker | None = None
-        if self.device.type == "cuda":
+        self._grad_writer: SerialWorker | None = None
+        self._optim_worker: SerialWorker | None = None
+        self._optim_prefetch: SerialWorker | None = None
+        # Adam-stage subgroup pipeline bookkeeping (see _exec_optim):
+        # _adam_work is appended by the executor thread under _adam_lock
+        # and read by the optimizer worker; the issue counter and in-flight
+        # deque are touched by the optimizer worker only.
+        self._adam_lock = threading.Lock()
+        # (unit, param key) pairs:
+        self._adam_work: list[tuple[str, str]] = []   # guarded-by: _adam_lock
+        self._adam_issued = 0
+        self._adam_inflight: deque = deque()          # (index, staged fut)
+        self._adam_poison: BaseException | None = None
+        # per-unit overflow screen: verdicts land per unit (writer thread
+        # under full overlap) and are OR-ed at the barrier.
+        self._screen_lock = threading.Lock()
+        self._region_verdicts: dict[str, bool] = {}  # guarded-by: _screen_lock
+        self._screen_regions = policy.fused_overflow and mode == "train"
+        if cuda:
             self._compute_stream = torch.cuda.current_stream(self.device)
             self._copy_stream = torch.cuda.Stream(self.device)
+            if mode == "train":
+                self._d2h_stream = torch.cuda.Stream(self.device)
         if policy.overlap in ("h2d", "full"):
             per_unit: dict[str, int] = {}
             for unit in model.units:
@@ -177,17 +268,74 @@ class OffloadSession:
             # latch=False: every staging future is awaited by the executor
             # (the wait half, or the abort path), which delivers failures.
             self._h2d = SerialWorker("offload-h2d", latch=False)
+        if policy.overlap == "full" and mode == "train":
+            self._grad_writer = SerialWorker("offload-gradwrite", maxsize=4)
+            self._optim_worker = SerialWorker("offload-optim")
+            # The Adam stage's own I/O thread: issues (state reads into the
+            # double-buffered staging arena) run here.  latch=False: every
+            # future is awaited by the optimizer worker, which delivers
+            # failures through the unit readiness future.
+            self._optim_prefetch = SerialWorker("offload-optim-prefetch",
+                                                latch=False)
 
-        # Serve mode writes only the compute-precision weights.
+        # Register every parameter.  Train mode seeds master weights + Adam
+        # moments on the store; serve mode writes only compute weights.
+        self.optimizer = (OffloadedAdam(self.store, policy.adam,
+                                        tracker=self.tracker)
+                          if mode == "train" else None)
+        if self.optimizer is not None:
+            # stale-read guard on the Adam commit's compute-weight write
+            self.optimizer.write_guard = self._guard_compute_write
         self._units: dict[str, tuple] = {}
+        total_params = 0
         for unit in model.units:
             meta = {}
             for key, value in unit.params.items():
-                self.store.write(f"{unit.name}/{key}{COMPUTE_SUFFIX}",
-                                 cast_host(value, policy.adam.compute_dtype))
+                if self.optimizer is not None:
+                    self.optimizer.register(f"{unit.name}/{key}", value)
+                else:
+                    self.store.write(f"{unit.name}/{key}{COMPUTE_SUFFIX}",
+                                     cast_host(value,
+                                               policy.adam.compute_dtype))
                 meta[key] = (value.shape, value.size)
+                total_params += value.size
             self._units[unit.name] = (unit, meta)
+        self.total_params = total_params
+
+        # Gradient flat buffer: fp32, whole partition, lives for the session
+        # (train mode only).  It comes from the policy's allocator, so on
+        # CUDA it is page-locked and every gradient D2H into it is a DMA.
+        self._flat_buf = None
+        self.flat = None
+        if mode == "train":
+            self._flat_buf = self.allocator.alloc(total_params * 4,
+                                                  tag="gradient_flat_buffer")
+            self.flat = self._flat_buf.view(np.float32, (total_params,))
+            self._flat_t = torch.from_numpy(self.flat)
+            self._flat_offsets: dict[str, tuple[int, int, tuple]] = {}
+            self._unit_flat_region: dict[str, tuple[int, int]] = {}
+            off = 0
+            for unit in model.units:
+                lo = off
+                for key, (shape, size) in self._units[unit.name][1].items():
+                    self._flat_offsets[f"{unit.name}/{key}"] = (
+                        off, size, shape)
+                    off += size
+                # a unit's parameters are contiguous in the flat buffer:
+                # [lo, off) is the region its per-unit screen covers
+                self._unit_flat_region[unit.name] = (lo, off)
+        if self._screen_regions:
+            # one int32 Inf/NaN flag per unit on the device, and where the
+            # writer reads it back (page-locked on CUDA)
+            n = len(model.units)
+            self._flag_index = {u.name: i for i, u in enumerate(model.units)}
+            self._flags = torch.zeros(n, dtype=torch.int32,
+                                      device=self.device)
+            self._flags_host = (torch.zeros(n, dtype=torch.int32,
+                                            pin_memory=True)
+                                if cuda else self._flags)
         self._plans: dict[str, StreamPlan] = {}
+        self.metrics: dict = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -198,27 +346,43 @@ class OffloadSession:
         self.close()
 
     def close(self) -> None:  # thread: executor
-        """Drain in-flight reads and the staging worker, return the arena,
-        close the store.  Idempotent; runs on the error path via
-        ``__exit__`` and on partially-constructed sessions (attributes may
-        not exist yet).  The staging worker goes first (its queued jobs
-        own swapper tickets), then the swapper drain sweeps any ticket
-        nobody claimed."""
+        """Drain in-flight reads and pipeline workers, return the arena +
+        flat buffer, close the store.  Idempotent; runs on the error path
+        via ``__exit__`` and on partially-constructed sessions (attributes
+        may not exist yet).
+
+        Worker order matters: the staging worker goes first (its queued
+        jobs own swapper tickets), then the gradient writer (its tasks may
+        gate on optimizer futures, so the optimizer worker must still be
+        alive), then the optimizer worker (whose unit tasks wait on
+        state-prefetch futures), then the state-prefetch worker, and only
+        then the swapper drain that sweeps any ticket nobody claimed.  The
+        optimizer's staging arena is freed after every worker that touches
+        it has stopped, and the flat buffer after the writer (whose DMAs
+        target it) has."""
         if getattr(self, "_closed", True):
             return
         self._closed = True
         steps = []
         if getattr(self, "_kv_cache", None) is not None:
             steps.append(self._kv_cache.close)
-        if getattr(self, "_h2d", None) is not None:
-            steps.append(self._h2d.close)
+        for worker_attr in ("_h2d", "_grad_writer", "_optim_worker",
+                            "_optim_prefetch"):
+            worker = getattr(self, worker_attr, None)
+            if worker is not None:
+                steps.append(worker.close)
+        if getattr(self, "optimizer", None) is not None:
+            steps.append(self.optimizer.close)
         if getattr(self, "swapper", None) is not None:
             steps.append(self.swapper.drain)
         if getattr(self, "pool", None) is not None:
             steps.append(self.pool.close)
+        if getattr(self, "_flat_buf", None) is not None:
+            steps.append(self._flat_buf.free)
         steps.append(self.store.close)
         # every step must run even if an earlier one raises — otherwise the
-        # arena/store leak with no way to retry; first failure re-raises.
+        # arena/flat buffer/store leak with no way to retry; first failure
+        # re-raises.
         failure = None
         for step in steps:
             try:
@@ -230,20 +394,81 @@ class OffloadSession:
             raise failure
 
     def synchronize(self) -> None:  # thread: executor
-        """Wait until the device finished every queued kernel and copy.
-        (Serving has no cross-step host pipeline to drain.)"""
+        """Drain the cross-step pipeline — queued gradient write-backs and
+        the in-flight optimizer stage, re-raising their failures — and
+        wait until the device finished every queued kernel and copy.  The
+        per-unit readiness gates make this unnecessary for correctness
+        between train steps; call it to close a timing window, read
+        complete ``optimizer_io_bytes``, or compare state across overlap
+        modes."""
+        if self._grad_writer is not None:
+            self._grad_writer.drain()
+        if self._optim_worker is not None:
+            self._optim_worker.drain()
+        if self._optim_prefetch is not None:
+            # empty by construction once the optimizer worker drained (unit
+            # tasks wait out their own commits); drained for completeness
+            self._optim_prefetch.drain()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # -- plans --------------------------------------------------------------
 
     def plan(self, name: str) -> StreamPlan:
-        """The session's compiled plan for ``name`` (prefill/decode_cached)."""
+        """The session's compiled plan for ``name``
+        (train/eval/prefill/decode_cached)."""
         if name not in self._plans:
-            compiler = {"prefill": compile_prefill,
-                        "decode_cached": compile_decode_cached}[name]
-            self._plans[name] = compiler(self.model)
+            if name == "train":
+                # the resolved per-block tiers ARE the policy
+                self._plans[name] = compile_train(
+                    self.model, act_policy=self._act_tiers or None)
+            else:
+                compiler = {"eval": compile_eval,
+                            "prefill": compile_prefill,
+                            "decode_cached": compile_decode_cached}[name]
+                self._plans[name] = compiler(self.model)
         return self._plans[name]
+
+    # -- autograd helpers (executor thread: grad mode is thread-local) -------
+
+    @staticmethod
+    def _leaves(params: dict) -> dict:
+        """Detached copies of staged device weights that autograd can
+        differentiate (the staged tensors themselves stay untouched)."""
+        return {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def _head_loss_and_grads(self, params, h, labels, scale: float):
+        """Loss, parameter grads and cotangent of the head; the grads carry
+        the loss scale (the host Adam unscales them)."""
+        with torch.enable_grad():
+            p = self._leaves(params)
+            x = h.detach().requires_grad_()
+            sloss = self.model.head_loss(p, x, labels) * scale
+            keys = list(p)
+            grads = torch.autograd.grad(sloss, [p[k] for k in keys] + [x])
+        return (sloss.detach() / scale, dict(zip(keys, grads[:-1],
+                                                 strict=True)), grads[-1])
+
+    def _block_bwd(self, params, x, dy):
+        """Recompute the block forward from its checkpoint under autograd
+        and pull the cotangent back: (parameter grads, dx)."""
+        with torch.enable_grad():
+            p = self._leaves(params)
+            xx = x.detach().requires_grad_()
+            out = self.model.block_apply(p, xx)
+            keys = list(p)
+            grads = torch.autograd.grad(out, [p[k] for k in keys] + [xx],
+                                        grad_outputs=dy)
+        return dict(zip(keys, grads[:-1], strict=True)), grads[-1]
+
+    def _embed_bwd(self, params, tokens, dy):
+        with torch.enable_grad():
+            p = self._leaves(params)
+            out = self.model.embed_apply(p, tokens)
+            keys = list(p)
+            grads = torch.autograd.grad(out, [p[k] for k in keys],
+                                        grad_outputs=dy)
+        return dict(zip(keys, grads, strict=True))
 
     # -- weight streaming ----------------------------------------------------
 
@@ -382,6 +607,40 @@ class OffloadSession:
                 ticket.release()                          # slot back to pool
         return device_params
 
+    # -- cross-step optimizer readiness --------------------------------------
+
+    def _guard_compute_write(self, key: str) -> None:  # thread: executor, optim-worker
+        """Adam-commit hook: refreshing ``key``'s compute weights on the
+        store while a prefetched read of them is in flight would race the
+        pread (the readiness gates forbid it; this asserts it)."""
+        self.swapper.assert_not_in_flight(key + COMPUTE_SUFFIX)
+
+    def _optim_ready(self, unit_name: str) -> bool:  # thread: executor
+        """True when the unit's previous-step Adam landed *successfully* —
+        a done-with-exception future is NOT ready (the store still holds
+        pre-update weights), so the window stalls on it until the head
+        position's :meth:`_optim_wait` delivers the failure."""
+        with self._optim_lock:
+            fut = self._optim_futures.get(unit_name)
+        return fut is None or (fut.done() and fut.exception() is None)
+
+    def _optim_wait(self, unit_name: str) -> None:  # thread: executor
+        """Block until the unit's previous-step Adam write-back landed
+        (re-raising an optimizer-worker failure here, at the point the
+        stale weights would otherwise have been read)."""
+        with self._optim_lock:
+            fut = self._optim_futures.get(unit_name)
+        if fut is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            fut.result()
+        except BaseException as e:
+            if self._optim_worker is not None:
+                self._optim_worker.consume_error(e)   # delivered here
+            raise
+        self._ostats.optim_gate_seconds += time.perf_counter() - t0
+
     # -- plan execution ------------------------------------------------------
 
     def execute(self, plan: StreamPlan, state: _ExecState) -> _ExecState:  # thread: executor
@@ -411,6 +670,15 @@ class OffloadSession:
                     while next_prefetch < limit:
                         unit = fetch_order[next_prefetch]
                         head = next_prefetch == fetch_pos
+                        # Cross-step gate: the unit's previous-step Adam
+                        # write-back must land before its weights are
+                        # re-read from the store.  Ahead-of-need positions
+                        # stall the window; the head position waits, which
+                        # is also where a failed Adam stage is delivered.
+                        if head:
+                            self._optim_wait(unit)
+                        elif not self._optim_ready(unit):
+                            break
                         # prefetch() is idempotent per key: a unit still in
                         # flight from an earlier position would alias onto
                         # its ticket, so stall the window until it is
@@ -440,6 +708,12 @@ class OffloadSession:
                     self._read_kv(op.unit, state)
                 elif isinstance(op, KVWriteOp):
                     self._write_kv(op, state)
+                elif isinstance(op, GradWriteOp):
+                    self._dispatch_grad_write(op.unit, state)
+                elif isinstance(op, OverflowCheckOp):
+                    self._exec_overflow(op, state)
+                elif isinstance(op, OptimStepOp):
+                    self._exec_optim(op.unit, state)
                 elif isinstance(op, ReleaseOp):
                     state.live.pop(op.unit, None)
                     tokens = state.live_slots.pop(op.unit, None)
@@ -448,8 +722,9 @@ class OffloadSession:
                     kv_tokens = state.kv_slots.pop(op.unit, None)
                     if kv_tokens:
                         self._device_slots.release_all(kv_tokens)
-                else:   # validated plans of this session hold no others
-                    raise ValueError(f"op {op!r} is not a serving op")
+                else:   # activation-offload and expert ops: later slices
+                    raise NotImplementedError(f"plan op {op!r} is not "
+                                              f"ported yet")
         except BaseException:
             self._abort_execute(state)
             raise
@@ -458,10 +733,10 @@ class OffloadSession:
     def _abort_execute(self, state: _ExecState) -> None:
         """Error path: nothing may leak.  Device-slot tokens are returned
         (resident units first, so a staging worker blocked on a slot can
-        finish), staged fetches waited out in submission order, and
-        outstanding reads drained back to the pool.  (KV pool slots belong
-        to the SpillableKVCache, whose owner — generate()'s finally —
-        closes it.)"""
+        finish), staged fetches waited out in submission order, the
+        gradient writer drained, and outstanding reads drained back to the
+        pool.  (KV pool slots belong to the SpillableKVCache, whose owner
+        — generate()'s finally — closes it.)"""
         for tokens in state.live_slots.values():
             self._device_slots.release_all(tokens)
         state.live_slots.clear()
@@ -499,6 +774,13 @@ class OffloadSession:
         state.h2d.clear()
         state.kv_live.clear()
         state.kv_append.clear()
+        state.grads.clear()
+        state.checkpoints.clear()
+        if self._grad_writer is not None:
+            # the original executor error propagates; queued write-backs
+            # finish (their DMAs target the flat buffer) before return
+            with contextlib.suppress(BaseException):
+                self._grad_writer.drain()
         self.swapper.drain()
 
     def _compute(self, op: ComputeOp, state: _ExecState) -> None:
@@ -506,6 +788,25 @@ class OffloadSession:
         model = self.model
         if op.kind == "embed":
             state.h = model.embed_apply(params, state.tokens)
+        elif op.kind == "block":
+            if op.save_input:
+                # device-tier checkpoint: the block input stays on the
+                # device until this block's backward recomputes from it
+                state.checkpoints[op.unit] = state.h
+            state.h = model.block_apply(params, state.h)
+        elif op.kind == "head_loss_grad":
+            state.loss, head_grads, state.dh = self._head_loss_and_grads(
+                params, state.h, state.labels, state.scale)
+            state.grads[op.unit] = head_grads
+        elif op.kind == "head_loss":
+            state.loss = model.head_loss(params, state.h, state.labels)
+        elif op.kind == "block_bwd":
+            x = state.checkpoints.pop(op.unit)
+            state.grads[op.unit], state.dh = self._block_bwd(
+                params, x, state.dh)
+        elif op.kind == "embed_bwd":
+            state.grads[op.unit] = self._embed_bwd(params, state.tokens,
+                                                   state.dh)
         elif op.kind == "head_logits":
             state.logits = model.head_logits(params, state.h)
         elif op.kind == "head_logits_last":
@@ -522,8 +823,9 @@ class OffloadSession:
                 params, state.h, k_dev, v_dev, state.cache_len,
                 chunk=self.decode_spec.bucket)
             state.kv_append[op.unit] = (k, v)
-        else:  # validated at plan build; defensive
-            raise ValueError(f"unknown serving compute kind {op.kind!r}")
+        else:  # recompute/MoE kinds come with later slices
+            raise NotImplementedError(f"compute kind {op.kind!r} is not "
+                                      f"ported yet")
 
     def _read_kv(self, unit_name: str, state: _ExecState) -> None:
         """Wait half of the split KVReadOp: take the staged device K/V
@@ -558,6 +860,387 @@ class OffloadSession:
             state.kv.append(op.unit, to_host(k), to_host(v))
         else:
             raise ValueError(f"KV write mode {op.mode!r} is not ported yet")
+
+    # -- gradient write-back -------------------------------------------------
+
+    def _dispatch_grad_write(self, unit_name: str, state: _ExecState) -> None:  # thread: executor
+        """Cast the unit's device grads to fp32 on the compute stream, then
+        run the write-back inline (sync/h2d modes) or enqueue it on the
+        writer thread (full overlap), gated on the previous step's Adam
+        having consumed the unit's flat region."""
+        staged = self._stage_grads(unit_name, state.grads.pop(unit_name))
+        if self._grad_writer is None:
+            self._write_grads(unit_name, staged)
+            return
+        with self._optim_lock:
+            gate = self._optim_futures.get(unit_name)
+        self._grad_writer.submit(
+            functools.partial(self._write_grads, unit_name, staged, gate))
+
+    def _stage_grads(self, unit_name: str, grads: dict) -> tuple:  # thread: executor
+        """The flat fp32 device tensors the D2H lands, in flat-buffer order,
+        and (on CUDA) an event recorded after their casts on the compute
+        stream — the writer's side stream waits on it."""
+        _unit, meta = self._units[unit_name]
+        flat = [(key, grads[key].float().reshape(-1)) for key in meta]
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(self._compute_stream)
+        return flat, ready
+
+    def _write_grads(self, unit_name: str, staged: tuple,  # thread: executor, writer
+                     gate: Future | None = None) -> None:
+        """Land one unit's fp32 grads in the host flat buffer, screening
+        them for Inf/NaN first (fused policies).  Returns only once the
+        copies (and the verdict) have landed."""
+        if self.flat is None:
+            raise RuntimeError("serve-mode session has no gradient buffer")
+        if gate is not None:
+            gate.result()   # step k-1's Adam must consume flat[unit] first
+        grads, ready = staged
+        if self.device.type != "cuda":
+            if self._screen_regions:
+                self._screen_unit_region(unit_name, grads)
+            for key, g in grads:
+                off, size, _shape = self._flat_offsets[f"{unit_name}/{key}"]
+                self._flat_t[off:off + size].copy_(g)
+            if self._screen_regions:
+                self._read_verdict(unit_name)
+            return
+        done = torch.cuda.Event()
+        try:
+            with torch.cuda.stream(self._d2h_stream):
+                self._d2h_stream.wait_event(ready)
+                if self._screen_regions:
+                    self._screen_unit_region(unit_name, grads)
+                for key, g in grads:
+                    off, size, _shape = \
+                        self._flat_offsets[f"{unit_name}/{key}"]
+                    self._flat_t[off:off + size].copy_(g, non_blocking=True)
+                    g.record_stream(self._d2h_stream)
+                if self._screen_regions:
+                    i = self._flag_index[unit_name]
+                    self._flags_host[i:i + 1].copy_(self._flags[i:i + 1],
+                                                    non_blocking=True)
+        finally:
+            # whatever was enqueued lands before the region or the flag is
+            # read, or the flat buffer is freed
+            done.record(self._d2h_stream)
+            done.synchronize()
+        if self._screen_regions:
+            self._read_verdict(unit_name)
+
+    def _screen_unit_region(self, unit_name: str, grads: list) -> None:  # thread: executor, writer
+        """Per-unit half of the fused overflow check: every fp32 gradient
+        tensor of the unit ORs its Inf/NaN verdict into the unit's flag
+        (the Hopper kernel on the card, its plain version on the CPU), on
+        the stream that then copies the tensors out."""
+        t0 = time.perf_counter()
+        i = self._flag_index[unit_name]
+        flag = self._flags[i:i + 1]
+        flag.zero_()
+        for _key, g in grads:
+            ops.overflow_flag_(g, flag)
+        self._ostats.add_worker_seconds("overflow_screen_seconds",
+                                        time.perf_counter() - t0)
+
+    def _read_verdict(self, unit_name: str) -> None:  # thread: executor, writer
+        t0 = time.perf_counter()
+        verdict = bool(self._flags_host[self._flag_index[unit_name]])
+        self._ostats.add_worker_seconds("overflow_screen_seconds",
+                                        time.perf_counter() - t0)
+        with self._screen_lock:
+            self._region_verdicts[unit_name] = verdict
+
+    # -- overflow + optimizer plan ops ---------------------------------------
+
+    def _exec_overflow(self, op: OverflowCheckOp, state: _ExecState) -> None:  # thread: executor
+        """OverflowCheckOp: drain the writer (the barrier that makes every
+        GradWriteOp visible), combine the step verdict, update the scaler.
+
+        With ``op.regions`` under a fused policy the verdict is the OR of
+        the per-unit screens that already ran as each write-back landed
+        (equal to the whole-buffer scan by the partition invariant); the
+        chained-baseline policy, whose 2.25x temporary peak is the thing
+        being measured, keeps the whole-buffer host scan here."""
+        if self.flat is None:
+            raise RuntimeError("serve-mode session has no gradient buffer")
+        if self._grad_writer is not None:
+            t0 = time.perf_counter()
+            self._grad_writer.drain()
+            self._ostats.gradwrite_drain_seconds += time.perf_counter() - t0
+        with self._screen_lock:
+            verdicts, self._region_verdicts = self._region_verdicts, {}
+        if op.regions and self._screen_regions:
+            overflow = False
+            for unit in op.regions:
+                verdict = verdicts.get(unit)
+                if verdict is None:
+                    # a write-back that bypassed the screen (e.g. a test
+                    # stubbing _write_grads): screen the region on the host
+                    # now so the verdict still covers every gradient
+                    lo, hi = self._unit_flat_region[unit]
+                    t0 = time.perf_counter()
+                    verdict = bool(check_region(self.flat, lo, hi,
+                                                fused=True,
+                                                tracker=self.tracker))
+                    self._ostats.add_worker_seconds(
+                        "overflow_screen_seconds", time.perf_counter() - t0)
+                overflow = overflow or verdict
+        else:
+            overflow = bool(flat_overflow_check(
+                self.flat, fused=self.policy.fused_overflow,
+                tracker=self.tracker))
+        state.overflowed = overflow
+        state.apply = self.scaler.update(state.overflowed)
+
+    def _exec_optim(self, unit_name: str, state: _ExecState) -> None:  # thread: executor
+        """OptimStepOp: stream one unit's subgroups through the host Adam —
+        inline, or pipelined across the optimizer + state-prefetch workers
+        with a readiness future that resolves when the unit's **last
+        write-back lands** (commit), gating the next step's fetch and
+        grad-write for this unit.
+
+        An overflow-skipped step (``state.apply`` false) returns before
+        anything is enqueued, so no state is prefetched for it and nothing
+        is left in flight to corrupt."""
+        if self.optimizer is None:
+            raise RuntimeError("serve-mode session has no optimizer")
+        if state.apply is None:   # validated at plan build; defensive
+            raise RuntimeError("OptimStepOp before OverflowCheckOp")
+        if not state.apply:
+            return                # skipped step: weights unchanged
+        if not state.optim_begun:
+            state.optim_begun = True
+            if self._optim_worker is not None:
+                # previous-step Adam tasks have all resolved (every unit's
+                # grad write this step gated on its step k-1 future and the
+                # barrier drained the writer), so the pipeline bookkeeping
+                # can be reset from this thread before new work lands
+                with self._adam_lock:
+                    self._adam_work = []
+                self._adam_issued = 0
+                self._adam_inflight = deque()
+                self._adam_poison = None
+                self._optim_worker.submit(self.optimizer.begin_step)
+            else:
+                self.optimizer.begin_step()
+        inv_scale = np.float32(1.0 / state.scale)
+        if self._optim_worker is not None:
+            _unit, meta = self._units[unit_name]
+            with self._adam_lock:
+                lo = len(self._adam_work)
+                self._adam_work.extend(
+                    (unit_name, key) for key in meta)
+                hi = len(self._adam_work)
+            fut = self._optim_worker.submit(functools.partial(
+                self._optim_unit_pipelined, unit_name, lo, hi, inv_scale))
+        else:
+            self._optim_unit(unit_name, inv_scale)
+            fut = done_future()
+        with self._optim_lock:
+            self._optim_futures[unit_name] = fut
+
+    def _optim_unit(self, unit_name: str, inv_scale: np.float32) -> None:  # thread: executor
+        """Inline (sync/h2d) Adam stage: stream subgroups synchronously
+        (the same three halves, composed back to back)."""
+        _unit, meta = self._units[unit_name]
+        for key in meta:
+            skey = f"{unit_name}/{key}"
+            staged = self.optimizer.issue_subgroup(skey)
+            try:
+                self.optimizer.compute_subgroup(
+                    staged, self._unit_grad(skey, inv_scale))
+            except BaseException:
+                self.optimizer.discard_staged(staged)
+                raise
+            self.optimizer.commit_subgroup(staged)
+
+    def _unit_grad(self, skey: str, inv_scale: np.float32) -> np.ndarray:  # thread: executor, optim-worker
+        """Unscale one subgroup's gradient out of the flat buffer.
+
+        Unscale with the scale the grads were produced under, not the
+        post-update one — on a growth step they differ by 2x.  The multiply
+        also copies out of the flat buffer, whose region is free for the
+        next step's write-back once the unit's readiness future resolves.
+        """
+        off, size, shape = self._flat_offsets[skey]
+        return self.flat[off:off + size].reshape(shape) * inv_scale
+
+    # -- the pipelined Adam stage (full overlap) -----------------------------
+
+    def _adam_ensure_issued(self, upto: int) -> None:  # thread: optim-worker
+        """Submit state-prefetch issues for work indices < ``upto``.
+
+        Deadlock-freedom of the arena's blocking acquire (inside the issue,
+        on the state-prefetch worker): every held buffer is released by a
+        write-completion callback on the optimizer's write-back executor
+        (commit), by the optimizer worker (error paths), or by the issue's
+        own failure handler — never by a task queued *behind* the blocked
+        issue on the state-prefetch worker itself.
+        """
+        with self._adam_lock:
+            n = len(self._adam_work)
+            pending = [self._adam_work[i]
+                       for i in range(self._adam_issued, min(upto, n))]
+        for unit_name, key in pending:
+            fut = self._optim_prefetch.submit(functools.partial(
+                self.optimizer.issue_subgroup, f"{unit_name}/{key}"))
+            self._adam_inflight.append((self._adam_issued, fut))
+            self._adam_issued += 1
+
+    def _optim_unit_pipelined(self, unit_name: str, lo: int, hi: int,  # thread: optim-worker
+                              inv_scale: np.float32) -> None:
+        """Optimizer-worker task for one unit's subgroups [lo, hi):
+        subgroup *k+1*'s (master, m, v) streams into the staging arena
+        while *k*'s ``adam_update`` runs, and *k−1*'s write-backs drain
+        behind them.  Returns — resolving the unit's readiness future —
+        only once every commit landed.
+
+        On any failure the whole in-flight window is drained and the step
+        is **poisoned**: the remaining unit tasks fail fast with the *same*
+        exception instance, so a failure surfaces exactly once while every
+        affected unit's readiness future still refuses to serve its
+        un-updated weights."""
+        if self._adam_poison is not None:
+            raise self._adam_poison
+        commits: list[Future] = []
+        try:
+            for g in range(lo, hi):
+                self._adam_ensure_issued(g + 2)
+                idx, staged_fut = self._adam_inflight.popleft()
+                if idx != g:    # defensive; the reset/cleanup paths keep
+                    raise RuntimeError(   # issue order == work order
+                        f"adam pipeline out of order: staged {idx}, "
+                        f"expected {g}")
+                t0 = time.perf_counter()
+                try:
+                    staged = staged_fut.result()
+                finally:
+                    self._ostats.add_worker_seconds(
+                        "optim_prefetch_wait_seconds",
+                        time.perf_counter() - t0)
+                try:
+                    self.optimizer.compute_subgroup(
+                        staged, self._unit_grad(staged.key, inv_scale))
+                except BaseException:
+                    self.optimizer.discard_staged(staged)
+                    raise
+                commits.append(
+                    self.optimizer.commit_subgroup_async(staged))
+            for commit in commits:
+                commit.result()
+        except BaseException as e:
+            self._adam_poison = e
+            self._adam_abort(commits, resume_at=hi)
+            raise
+
+    def _adam_abort(self, commits: list[Future], *, resume_at: int) -> None:  # thread: optim-worker
+        """Failure path of a unit task: wait out this unit's commits (each
+        releases its own buffer), release every issued-but-never-computed
+        staging buffer, and reset the issue counter to ``resume_at``."""
+        for commit in commits:
+            # the buffer was released in commit's finally
+            with contextlib.suppress(BaseException):
+                commit.result()
+        while self._adam_inflight:
+            _idx, staged_fut = self._adam_inflight.popleft()
+            try:
+                staged = staged_fut.result()
+            except BaseException:
+                continue        # a failed issue released its own buffer
+            self.optimizer.discard_staged(staged)
+        self._adam_issued = resume_at
+
+    def _snapshot_optim_io(self) -> None:  # thread: optim-worker
+        # queued after a step's last OptimStepOp: the completed-step ledger
+        io = self.optimizer.last_io_bytes
+        with self._optim_lock:
+            self._optim_io_completed = io
+
+    # -- training workloads --------------------------------------------------
+
+    def train_step(self, tokens: np.ndarray, labels: np.ndarray) -> dict:  # thread: executor
+        """One streamed training step; the whole pipeline — forward,
+        backward, overflow screen, host Adam — executes as the train plan.
+
+        Under ``overlap="full"`` the optimizer stage may still be streaming
+        when this returns (it overlaps the *next* step's prefetch window);
+        ``metrics["optimizer_io_bytes"]`` then reports the most recently
+        *completed* step (0 until one completes) — call :meth:`synchronize`
+        first for an exact up-to-date value.
+        """
+        if self.mode != "train":
+            raise RuntimeError("train_step requires a train-mode session")
+        wait0 = self.swapper.stats.wait_seconds
+        hits0 = self.swapper.stats.prefetch_hits
+        o0 = self._ostats.snapshot()
+        grad_scale = self.scaler.scale   # the flat-buffer grads carry this
+        state = self.execute(self.plan("train"), _ExecState(
+            self._tokens(tokens), self._tokens(labels), grad_scale))
+        if self._optim_worker is not None and state.apply:
+            self._optim_worker.submit(self._snapshot_optim_io)
+
+        ssd_wait = self.swapper.stats.wait_seconds - wait0
+        h2d_wait = self._ostats.h2d_wait_seconds - o0["h2d_wait_seconds"]
+        if self._optim_worker is not None:
+            with self._optim_lock:
+                optim_io = self._optim_io_completed
+        else:
+            optim_io = self.optimizer.last_io_bytes
+        self.metrics = {
+            "loss": float(state.loss),
+            "overflowed": state.overflowed,
+            "applied": state.apply,
+            "loss_scale": self.scaler.scale,
+            "optimizer_io_bytes": optim_io,
+            "peak_host_bytes": self.tracker.peak_allocated,
+            # compute-thread stall obtaining device weights at FetchOps —
+            # read wait + H2D inline (sync) or staged-future wait (overlap
+            # modes).  Comparable across overlap levels by construction.
+            "fetch_wait_s": self._ostats.fetch_seconds - o0["fetch_seconds"],
+            "ssd_wait_s": ssd_wait,    # raw read waits, whichever thread
+            "h2d_wait_s": h2d_wait,    # staged-future share of fetch_wait_s
+            "prefetch_hits": (self.swapper.stats.prefetch_hits - hits0
+                              + self._ostats.h2d_hits - o0["h2d_hits"]),
+            "gradwrite_drain_s": (self._ostats.gradwrite_drain_seconds
+                                  - o0["gradwrite_drain_seconds"]),
+            "optim_gate_s": (self._ostats.optim_gate_seconds
+                             - o0["optim_gate_seconds"]),
+        }
+        o1 = self._ostats.snapshot()
+        # worker-side counters: the Adam stage of step k accrues these
+        # while step k+1's window runs, so (like optim_gate_s) they are
+        # attributed to the train_step whose wall-clock window they land in
+        for metric, counter in (
+                ("optim_prefetch_wait_s", "optim_prefetch_wait_seconds"),
+                # the writer's time in the per-unit screen: kernel launches
+                # and the flag read after the unit's D2H synchronised
+                ("overflow_screen_s", "overflow_screen_seconds"),
+                ("act_save_wait_s", "act_save_wait_seconds"),
+                ("act_fetch_wait_s", "act_fetch_wait_seconds"),
+                ("act_write_failures", "act_write_failures"),
+                ("expert_fetch_wait_s", "expert_fetch_wait_seconds")):
+            self.metrics[metric] = o1[counter] - o0[counter]
+        return self.metrics
+
+    def eval_loss(self, tokens: np.ndarray, labels: np.ndarray) -> float:  # thread: executor
+        """Streamed forward + head loss (no gradients, no optimizer)."""
+        state = self.execute(self.plan("eval"), _ExecState(
+            self._tokens(tokens), self._tokens(labels)))
+        return float(state.loss)
+
+    def master_param(self, unit_name: str, key: str) -> np.ndarray:  # thread: executor
+        """The fp32 (or bf16-bit) master weights of one tensor, read from
+        the store after the pipeline drained."""
+        if self.mode != "train":
+            raise RuntimeError("serve-mode sessions hold no master weights")
+        self.synchronize()    # an in-flight Adam stage may still be writing
+        _unit, meta = self._units[unit_name]
+        shape, _ = meta[key]
+        sd = self.policy.adam.state_np_dtype
+        return self.store.read_new(f"{unit_name}/{key}.master", sd, shape)
 
     # -- cached decode (spill-able KV) ---------------------------------------
 

@@ -2,6 +2,8 @@
 
 * :mod:`swa_attention` — banded flash attention (port of the Pallas
   ``swa_attention_pallas``), CUDA C++ in ``csrc/swa_attention.cu``.
+* :mod:`overflow_check` — the fused Inf/NaN gradient screen (port of the
+  Pallas ``overflow_check_pallas``), CUDA C++ in ``csrc/overflow_check.cu``.
 
 ``ops`` dispatches on the tensors' device; ``_build`` compiles the CUDA
 sources with nvcc on first use.

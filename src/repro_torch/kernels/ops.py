@@ -8,14 +8,36 @@ failure raises; nothing falls back to the plain version).
 
 from __future__ import annotations
 
+from .overflow_check import (overflow_check_cuda, overflow_check_plain,
+                             overflow_flag_cuda_)
 from .swa_attention import swa_attention_cuda, swa_attention_plain
+
+
+def _device_type(t, name: str) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{t.device}")
+    return t.device.type
 
 
 def swa_attention(q, k, v, *, window: int = 0, causal: bool = True):
     """Banded flash attention (B, H, S, D) x (B, KH, S, D) -> (B, H, S, D)."""
-    if q.device.type == "cuda":
+    if _device_type(q, "swa_attention") == "cuda":
         return swa_attention_cuda(q, k, v, window=window, causal=causal)
-    if q.device.type == "cpu":
-        return swa_attention_plain(q, k, v, window=window, causal=causal)
-    raise ValueError(f"swa_attention runs on cuda or cpu tensors, got "
-                     f"{q.device}")
+    return swa_attention_plain(q, k, v, window=window, causal=causal)
+
+
+def overflow_check(x) -> bool:
+    """True iff any element of ``x`` is Inf or NaN (fp32/bf16/fp16)."""
+    if _device_type(x, "overflow_check") == "cuda":
+        return overflow_check_cuda(x.contiguous())
+    return bool(overflow_check_plain(x))
+
+
+def overflow_flag_(x, flag, lo: int = 0, hi: int | None = None):
+    """OR the Inf/NaN verdict of the ``[lo, hi)`` element region of the
+    contiguous ``x`` into the one-element int32 ``flag`` (on ``x``'s
+    device).  On CUDA this launches the kernel and does not sync."""
+    if _device_type(x, "overflow_flag_") == "cuda":
+        return overflow_flag_cuda_(x, flag, lo, hi)
+    return flag.bitwise_or_(overflow_check_plain(x, lo, hi).to(flag.dtype))

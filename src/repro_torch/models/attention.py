@@ -9,8 +9,12 @@ Port of the GQA half of ``src/repro/models/attention.py``.  Activations are
   output comes back in the (B, S, H, D) layout, without copies.
 * :func:`gqa_step` is plain torch: no TPU kernel computes it.  It keeps the
   reference's ``chunk`` extent-invariance exactly.
+* :func:`gqa_attention` is the full-sequence attention of a training
+  block: plain torch through :func:`attention_scores`, differentiated by
+  autograd, as the reference's training block runs its plain path (no
+  TPU kernel has a backward).
 * :func:`attention_scores` is the reference's plain path (probabilities
-  cast to q's dtype before the PV product), kept as the comparison for the
+  cast to q's dtype before the PV product), also the comparison for the
   kernel path.
 """
 
@@ -80,6 +84,18 @@ def gqa_project_qkv(params, x, cfg, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_attention(params, x, cfg, *, causal=True, window=None):
+    """Full-sequence GQA attention (training), plain torch."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = gqa_project_qkv(params, x, cfg, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    w = cfg.sliding_window if window is None else window
+    out = attention_scores(q, k, v, causal=causal, window=w)
+    return dense(out.reshape(b, s, -1), params["attn.w_o"])
 
 
 def gqa_prefill(params, x, cfg, *, window=None):

@@ -89,6 +89,17 @@ def lm_logits(h, table_or_head, *, transpose: bool = False):
     return torch.matmul(h, w).float()
 
 
+def cross_entropy(logits, labels, *, mask=None):
+    """Mean token-level CE in fp32.  labels == -100 are ignored."""
+    logits = logits.float()
+    valid = (labels >= 0) if mask is None else mask
+    safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe_labels[..., None]).squeeze(-1)
+    nll = (logz - gold) * valid.float()
+    return nll.sum() / torch.clamp(valid.sum().float(), min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Initializers (explicit torch.Generator)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Per-layer pieces of the decoder LM on torch tensors.
 
-Port of the layer taxonomy, per-layer init and the FFN half of
-``src/repro/models/transformer.py``, for the families this port runs:
+Port of the layer taxonomy, per-layer init, the FFN half and the
+full-sequence block of ``src/repro/models/transformer.py``, for the
+families this port runs:
 attention mixers with dense FFNs.  Other mixers (MLA, Mamba, xLSTM) and
 MoE FFNs raise and name the slice that brings them.
 """
@@ -13,6 +14,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from .attention import gqa_attention
 from .layers import fan_in_init, gated_mlp, rms_norm
 
 LATER = ("is not ported yet: the PyTorch port runs attention mixers with "
@@ -81,3 +83,14 @@ def apply_ffn(cfg: ModelConfig, fk: str, params, h):
     out = gated_mlp(hn, params["ffn.w_up"], params["ffn.w_down"],
                     cfg.gated_act, w_gate=params.get("ffn.w_gate"))
     return h + out
+
+
+def apply_layer(cfg: ModelConfig, kinds: tuple[str, str], params, h, *,
+                causal: bool = True):
+    """Pre-norm residual block (training / full sequence): mixer + FFN."""
+    mk, fk = kinds
+    if mk != "attn":
+        raise NotImplementedError(f"mixer {mk!r} {LATER}")
+    hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
+    mix = gqa_attention(params, hn, cfg, causal=causal)
+    return apply_ffn(cfg, fk, params, h + mix)

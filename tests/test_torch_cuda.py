@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, the
-page-locked allocator backings, and cached decode on the device.
+"""The port on the card: the CUDA kernels against their plain versions,
+the page-locked allocator backings, cached decode and the training step
+on the device.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device.  The file imports neither JAX nor the reference package, so it
@@ -18,9 +19,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (AlignmentFreeAllocator, DecodeSpec,
-                              MemoryTracker, OffloadPolicy,
+                              MemoryTracker, OffloadPolicy, OffloadSession,
                               PowerOfTwoCachingAllocator)
 from repro_torch.core.model_adapter import make_offloadable_lm
+from repro_torch.kernels import ops
+from repro_torch.kernels.overflow_check import (overflow_check_cuda,
+                                                overflow_check_plain,
+                                                overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (swa_attention_cuda,
                                                swa_attention_plain)
 from repro_torch.serve import OffloadedDecoder
@@ -132,3 +137,128 @@ def test_cached_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
             launched = swa_attention_cuda.launches - before
         assert launched == (cfg.n_layers if dev == "cuda" else 0)
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+# -- the overflow screen -------------------------------------------------------
+
+OV_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _ov(x, lo=0, hi=None):
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device)
+    got = bool(overflow_flag_cuda_(x, flag, lo, hi).item())
+    assert got == bool(overflow_check_plain(x, lo, hi))
+    return got
+
+
+@pytest.mark.parametrize("dtype", OV_DTYPES)
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 65_536, 100_001])
+def test_overflow_kernel_matches_plain_sweep(cuda, dtype, n):
+    """The reference sweep (tests/test_kernels.py): clean, finfo.max and
+    -0.0 never trigger; +Inf/-Inf/NaN at the first, middle and last index
+    always do."""
+    g = torch.Generator(device="cuda").manual_seed(n)
+    base = torch.randn(n, device=cuda, generator=g).to(dtype)
+    assert not _ov(base)
+    big = base.clone()
+    big[n // 2] = torch.finfo(dtype).max
+    big[0] = -0.0
+    assert not _ov(big)
+    for payload in (float("inf"), float("-inf"), float("nan")):
+        for pos in {0, n // 2, n - 1}:
+            x = base.clone()
+            x[pos] = payload
+            assert _ov(x) and overflow_check_cuda(x)
+
+
+@pytest.mark.parametrize("dtype", OV_DTYPES)
+@pytest.mark.parametrize("start", [0, 1, 3])
+def test_overflow_kernel_regions_edges_mid_vector(cuda, dtype, start):
+    """[lo, hi) regions whose edges fall inside a 16-byte vector, also
+    from a first element that is not 16-byte aligned: a payload just
+    inside trips the region, one just outside does not."""
+    n = 1000
+    for lo, hi in ((3, 61), (1, 2), (7, 40), (5, 997), (0, n), (9, 9)):
+        for pos, inside in ((lo, True), (hi - 1, True), (lo - 1, False),
+                            (hi, False)):
+            if not 0 <= pos < n or (inside and hi == lo):
+                continue
+            x = torch.zeros(n + start, dtype=dtype, device=cuda)[start:]
+            x[pos] = float("nan")
+            assert _ov(x, lo, hi) == inside
+
+
+@pytest.mark.parametrize("shape", [(4, 4), (3, 5, 7), (2, 2, 2, 2)])
+def test_overflow_kernel_nd_shapes(cuda, shape):
+    x = torch.randn(shape, device=cuda)
+    assert not overflow_check_cuda(x) and not ops.overflow_check(x)
+    x.view(-1)[0] = float("-inf")
+    assert overflow_check_cuda(x) and ops.overflow_check(x)
+
+
+def test_overflow_kernel_early_exit_keeps_a_set_flag(cuda):
+    """A set flag stays set (blocks return at entry) and the verdict stays
+    True; each launch counts once; other dtypes raise before a launch."""
+    x = torch.randn(1 << 20, device=cuda)
+    flag = torch.ones(1, dtype=torch.int32, device=cuda)
+    before = overflow_flag_cuda_.launches
+    assert overflow_flag_cuda_(x, flag).item() == 1
+    x[5] = float("inf")
+    flag.zero_()
+    overflow_flag_cuda_(x, flag)
+    overflow_flag_cuda_(x, flag, 6)        # clean tail: flag stays set
+    assert flag.item() == 1
+    assert overflow_flag_cuda_.launches == before + 3
+    with pytest.raises(TypeError):
+        overflow_flag_cuda_(x.double(), flag)
+    with pytest.raises(ValueError, match="contiguous"):
+        overflow_flag_cuda_(x.view(1024, 1024).t(), flag)
+    assert overflow_flag_cuda_.launches == before + 3
+
+
+TRAIN_CFG = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                        n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                        qk_norm=True)
+
+
+def _train(device, root, overlap="full", steps=3):
+    """fp32 train steps of the tiny model; returns (losses, session
+    facts)."""
+    model = make_offloadable_lm(TRAIN_CFG, 0, torch.float32, device=device)
+    policy = (OffloadPolicy.preset("memascend").with_store(root)
+              .with_adam(compute_dtype="float32", lr=1e-3)
+              .with_overlap(overlap)
+              .with_overrides(offload_checkpoints=False).build())
+    tokens = np.random.default_rng(0).integers(0, 256, size=(2, 16))
+    labels = np.roll(tokens, -1, axis=1)
+    with OffloadSession(model, policy) as s:
+        before = overflow_flag_cuda_.launches
+        losses = [s.train_step(tokens, labels)["loss"]
+                  for _ in range(steps)]
+        facts = {"launches": overflow_flag_cuda_.launches - before,
+                 "pinned": torch.from_numpy(s.flat[:16]).is_pinned(),
+                 "eval": s.eval_loss(tokens, labels),
+                 "master": s.master_param("block_000", "attn.w_q")}
+    return losses, facts
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """fp32 (TF32 off) losses on the card within rtol 1e-5 of the port's
+    CPU run (the same math, other summation order); the gradient flat
+    buffer is page-locked; every gradient tensor is screened by the
+    kernel once a step."""
+    cpu, _ = _train("cpu", str(tmp_path / "cpu"))
+    gpu, facts = _train("cuda", str(tmp_path / "gpu"))
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-5)
+    assert facts["pinned"]
+    n_tensors = 2 * 11 + 3
+    assert facts["launches"] == 3 * n_tensors
+    assert gpu[-1] < gpu[0]
+
+
+def test_train_sync_equals_full_on_the_card(cuda, tmp_path):
+    sync, s_facts = _train("cuda", str(tmp_path / "sync"), overlap="sync")
+    full, f_facts = _train("cuda", str(tmp_path / "full"))
+    assert sync == full
+    assert s_facts["eval"] == f_facts["eval"]
+    np.testing.assert_array_equal(s_facts["master"], f_facts["master"])

@@ -27,6 +27,13 @@ def test_port_has_modules():
     assert len(FILES) > 20
 
 
+@pytest.mark.parametrize("module", [
+    "core/loss_scale.py", "core/overflow.py", "core/optimizer.py",
+    "core/session.py", "kernels/overflow_check.py", "kernels/ops.py"])
+def test_training_slice_modules_are_scanned(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported(path) & set(FORBIDDEN)
