@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--layers N] [--new-tokens N] [--train-layers N]
-                          [--seed S]
+                          [--serve-layers N] [--seed S]
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -10,8 +10,10 @@ Phases (each raises on failure; the script exits non-zero):
    nvcc (one process per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card: the
    reference sweeps, plus for attention ``causal=False``, lengths no tile
-   divides and the prefill shape, and for the overflow screen nd shapes,
-   regions whose edges fall mid-vector and the embedding gradient's size;
+   divides and the prefill shape, for the overflow screen nd shapes,
+   regions whose edges fall mid-vector and the embedding gradient's size,
+   and for fused AdamW ragged sizes, fp16/fp32 ``w16``, misaligned inputs
+   and a five-step trajectory (bit for bit);
 4. time each kernel at its main path's shape (CUDA events, median of 20),
    its plain version, one PyTorch library call computing the same
    function (a yardstick only: the port never calls it) and the bound,
@@ -32,7 +34,26 @@ Phases (each raises on failure; the script exits non-zero):
    held against a device-resident plain forward/backward and a plain
    AdamW on the card, and a second session with an Inf in one weight must
    skip its step;
-7. print the ``kernels`` JSON line, the card line, and the result line.
+7. fused AdamW at its entry point: three ``ops.fused_adam`` steps over
+   qwen3-4b's largest tensor (the tied embedding, 388,956,160 fp32), the
+   kernel's launch count zeroed just before and read just after, step 1
+   held bit for bit against the plain version;
+8. serving breadth on one ``memascend`` decoder of qwen3-4b at full width
+   and ``--serve-layers`` depth (overlap ``full``, ``DecodeSpec(batch=4,
+   max_seq=640, bucket=64)``):
+   a. uncached decode, ``generate(use_cache=False)`` at batch 4, prompt
+      128: its first-step logits within 8 bf16 ULPs of each row's max of
+      the cached prefill's, token agreement with the cached path;
+   b. continuous batching, ``ServingEngine.run`` over 8 requests with
+      seeded prompts of 64-448 tokens, 8-16 new tokens and arrivals over
+      ~2 s: every request done, one attention launch per block per prefill
+      group, retired slots' pages reclaimed, two requests re-run alone
+      through a fresh engine give the same tokens;
+   c. speculative decode, ``generate(spec=SpecConfig(k=4))`` on prompts
+      that repeat a seeded 32-token pattern to 256 tokens, equal to the
+      plain greedy tokens, and the ``verify_step`` logits of a 4-token
+      window equal (``torch.equal``) the ``decode_step`` chain's;
+9. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
@@ -41,6 +62,7 @@ Needs one CUDA device.  Kernel builds and the SSD stores live under
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -65,7 +87,9 @@ from repro_torch.core import overflow as host_overflow  # noqa: E402
 from repro_torch.core.dtypes import cast_host, to_torch  # noqa: E402
 from repro_torch.core.model_adapter import make_offloadable_lm  # noqa: E402
 from repro_torch.core.nvme import DirectNVMeEngine  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.fused_adam import (  # noqa: E402
+    fused_adam_cuda, fused_adam_plain)
 from repro_torch.kernels.overflow_check import (  # noqa: E402
     overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
@@ -74,7 +98,8 @@ from repro_torch.models.attention import gqa_project_qkv  # noqa: E402
 from repro_torch.models.layers import (dense, embed_lookup,  # noqa: E402
                                        lm_logits, rms_norm)
 from repro_torch.models.transformer import apply_ffn  # noqa: E402
-from repro_torch.serve import OffloadedDecoder  # noqa: E402
+from repro_torch.serve import (OffloadedDecoder, Request,  # noqa: E402
+                               RequestState, ServingEngine, SpecConfig)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
@@ -280,6 +305,128 @@ def time_overflow(gen) -> dict:
     # one read of each element; a mask and a compare an element are far
     # below the card's integer rate
     bytes_ms = 1e3 * 4 * n / HBM_BYTES_PER_S
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bytes_ms, "bound_by": "bytes"}
+
+
+# -- phase 3 + 4 + 7: the fused-AdamW kernel ------------------------------------
+
+ADAM_KW = dict(lr=3e-3, weight_decay=0.05)
+
+
+def _adam_inputs(gen, n, *, moments=True):
+    p, g = (torch.randn(n, device="cuda", generator=gen) for _ in range(2))
+    if not moments:
+        return p, g, torch.zeros_like(p), torch.zeros_like(p)
+    m = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    v = 0.01 * torch.randn(n, device="cuda", generator=gen).abs()
+    return p, g, m, v
+
+
+def _adam_agree(ins, step, **kw) -> float:
+    """Kernel vs plain on the same tensors; p, m, v and w16 must be equal
+    bit for bit (the kernel's explicitly rounded fp32 ops are the plain
+    version's unfused PyTorch ops).  Returns the max abs difference."""
+    got = fused_adam_cuda(*ins, step, **kw)
+    torch.cuda.synchronize()
+    want = fused_adam_plain(*ins, step, **kw)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want, strict=True))
+    same = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    if not same:
+        raise AssertionError(f"fused_adam n {ins[0].numel()} step {step} "
+                             f"{kw}: kernel differs from plain (max {err})")
+    return err
+
+
+def check_fused_adam(gen) -> tuple[float, int]:
+    """The reference sweep (tests/test_kernels.py: shapes (16,), (100, 3),
+    (8, 8, 9), (2048,) at steps 1, 10, 1000, lr 3e-3, weight decay 0.05),
+    n = 1, 127, 129, 100,001 with bf16/fp16/fp32 w16, inputs that start
+    mid-vector and the five-step trajectory; every output bit for bit.
+    Returns (max abs error, cases)."""
+    err, cases = 0.0, 0
+    for shape in ((16,), (100, 3), (8, 8, 9), (2048,)):
+        n = int(np.prod(shape))
+        for step in (1, 10, 1000):
+            ins = [t.view(shape) for t in _adam_inputs(gen, n)]
+            err = max(err, _adam_agree(ins, step, **ADAM_KW))
+            cases += 1
+    for n in (1, 127, 129, 100_001):
+        for out_dtype in (torch.bfloat16, torch.float16, torch.float32):
+            err = max(err, _adam_agree(_adam_inputs(gen, n), 7,
+                                       out_dtype=out_dtype, **ADAM_KW))
+            cases += 1
+    ins = [t[1:] for t in _adam_inputs(gen, 4097)]     # scalar path
+    err = max(err, _adam_agree(ins, 3, **ADAM_KW))
+    p, g0, m, v = _adam_inputs(gen, 512, moments=False)
+    pr, mr, vr = p, m, v
+    for t in range(1, 6):
+        g = g0 * (0.9 ** t)
+        p, m, v, _ = fused_adam_cuda(p, g, m, v, t, lr=1e-2)
+        pr, mr, vr, _ = fused_adam_plain(pr, g, mr, vr, t, lr=1e-2)
+    if not (torch.equal(p, pr) and torch.equal(m, mr) and torch.equal(v, vr)):
+        raise AssertionError("fused_adam five-step trajectory differs")
+    cases += 2
+    print(f"  fused_adam: {cases} cases equal the plain version bit for bit "
+          f"(reference sweep, ragged n, fp16/fp32 w16, misaligned inputs, "
+          f"five-step trajectory)")
+    return err, cases
+
+
+def run_adam_path(gen) -> dict:
+    """Three AdamW steps over the tied embedding's size through the entry
+    point ``ops.fused_adam``, the launch count zeroed just before and read
+    just after; step 1 equals the plain version bit for bit."""
+    n = _main_grad_elems()
+    p, g, m, v = _adam_inputs(gen, n, moments=False)
+    want = fused_adam_plain(p, g, m, v, 1, **ADAM_KW)
+    torch.cuda.synchronize()
+    fused_adam_cuda.launches = 0
+    t0 = time.perf_counter()
+    state = (p, m, v)
+    for step in (1, 2, 3):
+        out = ops.fused_adam(state[0], g, state[1], state[2], step, **ADAM_KW)
+        state = out[:3]
+        if step == 1:
+            first = out
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_adam_cuda.launches
+    if launches != 3:
+        raise AssertionError(f"fused_adam launched {launches} times in "
+                             f"three steps")
+    if not all(torch.equal(a, b) for a, b in zip(first, want, strict=True)):
+        raise AssertionError("fused_adam step 1 over the embedding differs "
+                             "from the plain version")
+    if not torch.isfinite(state[0]).all():
+        raise AssertionError("fused_adam produced non-finite weights")
+    print(f"  fused_adam entry point: 3 steps over {n} fp32 in "
+          f"{seconds:.3f} s, {launches} launches, step 1 bit-equal to plain")
+    return {"launches": launches, "seconds": seconds}
+
+
+def time_fused_adam(gen) -> dict:
+    """Times at qwen3-4b's largest parameter tensor (the tied embedding,
+    388,956,160 fp32), bf16 w16: the kernel, its plain version and one
+    ``torch._fused_adamw_`` call updating copies of the same four tensors
+    in place (a yardstick only: the port never calls it, and it emits no
+    bf16 copy of the weights)."""
+    n = _main_grad_elems()
+    p, g, m, v = _adam_inputs(gen, n)
+    ms = cuda_ms(lambda: fused_adam_cuda(p, g, m, v, 10, **ADAM_KW))
+    plain_ms = cuda_ms(lambda: fused_adam_plain(p, g, m, v, 10, **ADAM_KW))
+    lp, lm, lv = p.clone(), m.clone(), v.clone()
+    steps = [torch.tensor(10.0, device="cuda")]
+    library_ms = cuda_ms(lambda: torch._fused_adamw_(
+        [lp], [g], [lm], [lv], [], steps, lr=ADAM_KW["lr"], beta1=0.9,
+        beta2=0.999, weight_decay=ADAM_KW["weight_decay"], eps=1e-8,
+        amsgrad=False, maximize=False))
+    del lp, lm, lv
+    # each input read once (16 B), each output written once (12 B of fp32
+    # p, m, v and 2 B of bf16 w16); ~40 fp32 operations an element are far
+    # below the card's rate
+    bytes_ms = 1e3 * 30 * n / HBM_BYTES_PER_S
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bytes_ms, "bound_by": "bytes"}
 
@@ -706,6 +853,223 @@ def check_overflow_skip(args, workdir: str, device: str) -> dict:
     return result
 
 
+# -- phase 8: serving breadth ------------------------------------------------------
+
+SERVE_BATCH, SERVE_MAX_SEQ, SERVE_BUCKET = 4, 640, 64
+UNCACHED_PROMPT, UNCACHED_NEW = 128, 3
+N_REQUESTS, ARRIVAL_SPAN_S = 8, 2.0
+SPEC_PATTERN, SPEC_PROMPT, SPEC_NEW, SPEC_K = 32, 256, 24, 4
+
+
+def _serve_decoder(args, workdir: str):
+    """One ``memascend`` decoder of qwen3-4b at full width and
+    ``--serve-layers`` depth, overlap ``full``, on a direct-NVMe store."""
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              n_layers=args.serve_layers)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device="cuda")
+    spec = DecodeSpec(batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                      bucket=SERVE_BUCKET)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    kv_bytes = 2 * 2 * SERVE_BATCH * SERVE_MAX_SEQ * cfg.n_kv_heads * \
+        cfg.head_dim * cfg.n_layers
+    capacity = -(-(2 * n_params + kv_bytes) // 2) + (256 << 20)
+    policy = OffloadPolicy.preset("memascend").with_store(
+        factory=lambda: DirectNVMeEngine(os.path.join(workdir, "serve_store"),
+                                         n_devices=2,
+                                         device_capacity=capacity)).build()
+    if policy.overlap != "full":
+        raise AssertionError(f"memascend overlap is {policy.overlap!r}")
+    return cfg, OffloadedDecoder(model, policy, decode=spec)
+
+
+def run_uncached(cfg, dec, rng) -> dict:
+    """``generate(use_cache=False)`` at batch 4, prompt 128; the first
+    step's logits (``step_logits``) against the cached prefill's."""
+    prompts = rng.integers(0, cfg.vocab, size=(SERVE_BATCH, UNCACHED_PROMPT))
+    t0 = time.perf_counter()
+    tokens = dec.generate(prompts, UNCACHED_NEW, use_cache=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    first = dec.step_logits(prompts)
+    cached = dec.generate(prompts, UNCACHED_NEW)
+    s = dec.session
+    kv = s.open_kv_cache()
+    try:
+        pre = s.prefill(kv, prompts)
+    finally:
+        kv.close()
+    if tokens.shape != (SERVE_BATCH, UNCACHED_NEW) or \
+            not np.isfinite(first).all():
+        raise AssertionError(f"bad uncached output {tokens.shape}")
+    scale = np.maximum(np.abs(pre).max(-1, keepdims=True), 1.0)
+    rel = float((np.abs(first - pre) / scale).max())
+    agree = float((tokens == cached).mean())
+    print(f"  uncached: {UNCACHED_NEW} tokens at batch {SERVE_BATCH} from a "
+          f"{UNCACHED_PROMPT}-token prompt in {seconds:.2f} s; first-step "
+          f"logits vs cached prefill: max row-scaled diff {rel:.3e} (tol "
+          f"{LOGIT_TOL:.3e}); token agreement with the cached path "
+          f"{agree:.3f}")
+    if not rel <= LOGIT_TOL:
+        raise AssertionError(f"uncached first-step logits differ from the "
+                             f"cached prefill's: {rel} > {LOGIT_TOL}")
+    return {"uncached_s": seconds, "uncached_logit_rel_diff": rel,
+            "uncached_token_agreement": agree}
+
+
+def _requests(cfg, rng) -> list:
+    lens = rng.integers(64, 449, N_REQUESTS)
+    budgets = rng.integers(8, 17, N_REQUESTS)
+    arrivals = np.sort(rng.uniform(0.0, ARRIVAL_SPAN_S, N_REQUESTS))
+    arrivals[0] = 0.0
+    return [Request(rid=f"r{i}", prompt=rng.integers(0, cfg.vocab, int(n)),
+                    max_new_tokens=int(m), arrival=float(a))
+            for i, (n, m, a) in enumerate(zip(lens, budgets, arrivals,
+                                              strict=True))]
+
+
+def run_continuous(cfg, dec, rng) -> dict:
+    """``ServingEngine.run`` over staggered ragged requests on the wall
+    clock, under the profiler (device busy share); then two requests
+    re-run alone through a fresh engine."""
+    reqs = _requests(cfg, rng)
+    engine = ServingEngine(dec)
+    torch.cuda.synchronize()
+    swa_attention_cuda.launches = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        report = engine.run(reqs)
+        torch.cuda.synchronize()
+    launches = swa_attention_cuda.launches
+    states = [r.state for r in report.requests]
+    if states != [RequestState.DONE] * N_REQUESTS:
+        raise AssertionError(f"request states {states}")
+    if launches != cfg.n_layers * report.prefills:
+        raise AssertionError(f"swa_attention launched {launches} times for "
+                             f"{report.prefills} prefill groups of "
+                             f"{cfg.n_layers} blocks")
+    if not report.kv_stats["reclaims"] > 0:
+        raise AssertionError("retired slots' pages were not reclaimed")
+    for r in report.requests:
+        if not (1 <= len(r.output) <= r.max_new_tokens
+                and all(0 <= t < cfg.vocab for t in r.output)):
+            raise AssertionError(f"bad output for {r.rid}: {r.output}")
+    solo = {}
+    for r in (report.requests[0], report.requests[-1]):
+        alone = ServingEngine(dec).run([Request(
+            rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)])
+        solo[r.rid] = alone.requests[0].output
+        if solo[r.rid] != r.output:
+            raise AssertionError(f"{r.rid} served alone gave other tokens: "
+                                 f"{solo[r.rid]} vs {r.output}")
+    busy_ms, _events = _device_busy_ms(prof)
+    out = {"requests": N_REQUESTS, "prompt_lens": [r.prompt_len
+                                                   for r in reqs],
+           "duration_s": report.duration_s,
+           "tokens": report.total_tokens,
+           "tokens_per_s": report.tokens_per_s,
+           "occupancy": report.occupancy,
+           "ttft_p50_s": report.ttft_percentile(50),
+           "ttft_p99_s": report.ttft_percentile(99),
+           "prefill_groups": report.prefills,
+           "decode_steps": report.decode_steps,
+           "swa_launches": launches,
+           "kv_reclaims": report.kv_stats["reclaims"],
+           "device_busy_ms": busy_ms or None,
+           "device_idle_share": (1.0 - busy_ms / (1e3 * report.duration_s))
+           if busy_ms else None,
+           "solo_equal": sorted(solo)}
+    print(f"  continuous: {out}")
+    return out
+
+
+def run_speculative(cfg, dec, rng) -> dict:
+    """``generate(spec=SpecConfig(k=4))`` against the plain greedy tokens,
+    and one 4-token ``verify_step`` against the ``decode_step`` chain."""
+    patterns = rng.integers(0, cfg.vocab, (SERVE_BATCH, SPEC_PATTERN))
+    prompts = np.tile(patterns, (1, SPEC_PROMPT // SPEC_PATTERN))
+    t0 = time.perf_counter()
+    plain = dec.generate(prompts, SPEC_NEW)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = dec.generate(prompts, SPEC_NEW, spec=SpecConfig(k=SPEC_K))
+    spec_s = time.perf_counter() - t0
+    stats = dec.spec_stats
+    if not np.array_equal(fast, plain):
+        raise AssertionError(f"speculative tokens differ from plain greedy: "
+                             f"{fast} vs {plain}")
+    s = dec.session
+    window = np.concatenate([plain[:, :1], rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SPEC_K - 1))], axis=1)
+    # the chain's first step and the verify pass under the profiler: the
+    # device time a window of per-position (B, 1) products costs
+    kv = s.open_kv_cache()
+    try:
+        s.prefill(kv, prompts)
+        chain = []
+        for j in range(SPEC_K):
+            with _maybe_profile(j == 0) as prof:
+                chain.append(s.decode_step(kv, window[:, j:j + 1]))
+                torch.cuda.synchronize()
+            if j == 0:
+                step_busy_ms, _ = _device_busy_ms(prof)
+    finally:
+        kv.close()
+    kv = s.open_kv_cache()
+    try:
+        s.prefill(kv, prompts)
+        with _maybe_profile(True) as prof:
+            verify = s.verify_step(kv, window)
+            torch.cuda.synchronize()
+        verify_busy_ms, _ = _device_busy_ms(prof)
+    finally:
+        kv.close()
+    for j in range(SPEC_K):
+        if not torch.equal(torch.from_numpy(verify[:, j]),
+                           torch.from_numpy(chain[j])):
+            raise AssertionError(f"verify logits at window position {j} "
+                                 f"differ from the decode_step chain")
+    out = {"plain_s": plain_s, "spec_s": spec_s, "rounds": stats.rounds,
+           "accepted_per_step": stats.accepted_per_step,
+           "drafted": stats.drafted, "accepted": stats.accepted,
+           "spec_overhead_s": stats.spec_overhead_s,
+           "verify_equals_step_chain": True,
+           "step_device_ms": step_busy_ms or None,
+           "verify_device_ms": verify_busy_ms or None}
+    print(f"  speculative: {out}")
+    return out
+
+
+def _maybe_profile(on: bool):
+    if not on:
+        return contextlib.nullcontext()
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+def run_serve_paths(args, workdir: str) -> dict:
+    rng = np.random.default_rng(args.seed + 3)
+    t0 = time.perf_counter()
+    cfg, dec = _serve_decoder(args, workdir)
+    with dec:
+        out = {"serve_layers": cfg.n_layers,
+               "serve_setup_s": time.perf_counter() - t0}
+        print(f"serving breadth: {cfg.name} depth {cfg.n_layers} of 36 "
+              f"(--serve-layers), batch {SERVE_BATCH}, max_seq "
+              f"{SERVE_MAX_SEQ}, bucket {SERVE_BUCKET}; setup "
+              f"{out['serve_setup_s']:.2f} s")
+        for name, phase in (("uncached", run_uncached),
+                            ("continuous", run_continuous),
+                            ("speculative", run_speculative)):
+            t = time.perf_counter()
+            out[name] = phase(cfg, dec, rng)
+            out[f"{name}_phase_s"] = time.perf_counter() - t
+            print(f"  {name} phase: {out[f'{name}_phase_s']:.1f} s")
+    return out
+
+
 def _device_busy_ms(prof) -> tuple[float, list]:
     """Device-side events only (kernels and copies): the host ops that
     launched them carry the same time again."""
@@ -721,11 +1085,14 @@ def main() -> int:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--train-layers", type=int, default=4,
                     help="qwen3-4b depth of the training phase")
+    ap.add_argument("--serve-layers", type=int, default=4,
+                    help="qwen3-4b depth of the serving-breadth phases")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if args.new_tokens < 3 or args.layers < 1 or args.train_layers < 1:
-        ap.error("needs --new-tokens >= 3, --layers >= 1 and "
-                 "--train-layers >= 1")
+    if args.new_tokens < 3 or min(args.layers, args.train_layers,
+                                  args.serve_layers) < 1:
+        ap.error("needs --new-tokens >= 3 and --layers, --train-layers and "
+                 "--serve-layers >= 1")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -766,15 +1133,36 @@ def main() -> int:
           f"{ov_timing['ms']:.4f} ms, plain {ov_timing['plain_ms']:.4f} ms, "
           f"isfinite().all() {ov_timing['library_ms']:.4f} ms, bound "
           f"{ov_timing['bound_ms']:.4f} ms (bytes)")
+    adam_err, _cases = check_fused_adam(gen)
+    adam_timing = time_fused_adam(gen)
+    print(f"  fused_adam at {_main_grad_elems()} fp32, bf16 w16: "
+          f"{adam_timing['ms']:.4f} ms, plain {adam_timing['plain_ms']:.4f} "
+          f"ms, torch._fused_adamw_ (no w16) "
+          f"{adam_timing['library_ms']:.4f} ms, bound "
+          f"{adam_timing['bound_ms']:.4f} ms (bytes)")
     torch.cuda.empty_cache()
+    print(f"kernel phases: {time.perf_counter() - t_start:.1f} s")
 
+    phase_s = {}
+    t = time.perf_counter()
+    adam_path = run_adam_path(gen)
+    torch.cuda.empty_cache()
+    phase_s["adam"] = time.perf_counter() - t
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_store_") as workdir:
+        t = time.perf_counter()
         main_path = run_main_path(args, workdir)
+        phase_s["cached_decode"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run_serve_paths(args, workdir)
+        phase_s["serving_breadth"] = time.perf_counter() - t
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_train_") as workdir:
+        t = time.perf_counter()
         train = run_train_path(args, workdir)
+        phase_s["training"] = time.perf_counter() - t
+    print(f"phase seconds: {phase_s}")
 
     kernels = [{
         "name": "swa_attention", "route": "cuda",
@@ -786,7 +1174,12 @@ def main() -> int:
         "source": "src/repro_torch/csrc/overflow_check.cu",
         "replaces": "src/repro/kernels/overflow_check.py:71",
         "launches": train["overflow_launches"], "max_abs_err": ov_err,
-        **ov_timing}]
+        **ov_timing}, {
+        "name": "fused_adam", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_adam.cu",
+        "replaces": "src/repro/kernels/fused_adam.py:72",
+        "launches": adam_path["launches"], "max_abs_err": adam_err,
+        **adam_timing}]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

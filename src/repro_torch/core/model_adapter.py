@@ -24,10 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import gqa_prefill, gqa_step
+from repro_torch.models.attention import gqa_prefill, gqa_step, gqa_verify
 from repro_torch.models.layers import (cross_entropy, embed_lookup,
                                        fan_in_init, lm_logits, rms_norm,
-                                       trunc_normal)
+                                       split_positions, trunc_normal)
 from repro_torch.models.transformer import (LATER, apply_ffn, apply_layer,
                                             ffn_kind, init_layer_params,
                                             layer_period, mixer_kind)
@@ -127,6 +127,20 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                                      cache_len, chunk=chunk)
         return apply_ffn(cfg, kinds[1], params, h + mix), k_new, v_new
 
+    def block_verify(params, h, k_cache, v_cache, cache_len, *,
+                     chunk=None):
+        # a (B, K) draft window in one weight fetch: every norm, projection
+        # and FFN runs per position at block_step's (B, 1) shapes, so the
+        # window is bitwise K chained block_steps (see gqa_verify)
+        cols = split_positions(h)
+        hn = torch.cat([rms_norm(c, params["norm_mixer"], cfg.rms_eps)
+                        for c in cols], dim=1)
+        mix, k_new, v_new = gqa_verify(params, hn, cfg, k_cache, v_cache,
+                                       cache_len, chunk=chunk)
+        out = [apply_ffn(cfg, kinds[1], params, c + m)
+               for c, m in zip(cols, split_positions(mix), strict=True)]
+        return torch.cat(out, dim=1), k_new, v_new
+
     def kv_shape(batch: int, time: int) -> tuple:
         return (2, batch, time, cfg.n_kv_heads, cfg.head_dim)
 
@@ -135,4 +149,5 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                             block_apply=block_apply, head_loss=head_loss,
                             head_logits=head_logits,
                             block_prefill=block_prefill,
-                            block_step=block_step, kv_shape=kv_shape)
+                            block_step=block_step, block_verify=block_verify,
+                            kv_shape=kv_shape)

@@ -73,6 +73,10 @@ class OffloadableModel:
       block_step(params, h, k_cache, v_cache, cache_len, *, chunk)
                                                -> h, k_new, v_new (cached
                                                   decode step)
+      block_verify(params, h, k_cache, v_cache, cache_len, *, chunk)
+                                               -> h, k_new, v_new (a
+                                                  (batch, K) draft window,
+                                                  bitwise K chained steps)
     ``class_of(param_key)`` maps a parameter to its pool shape class;
     ``kv_shape(batch, time)`` is one block's host KV-slot shape (leading
     axis 2 packs K and V); ``device`` is where the applies run.
@@ -87,6 +91,7 @@ class OffloadableModel:
     head_logits: Callable | None = None
     block_prefill: Callable | None = None
     block_step: Callable | None = None
+    block_verify: Callable | None = None
     kv_shape: Callable[[int, int], tuple] | None = None
 
     def census(self, inflight_blocks: int = 2,

@@ -51,10 +51,18 @@ reads the region or the flag.  On the CPU the same steps run with the
 kernel's plain version.  The OverflowCheckOp barrier only ORs the per-unit
 verdicts (the partition-OR invariant of :mod:`repro_torch.core.overflow`).
 
-Cached decode (``prefill`` / ``decode_step``, ``mode="serve"``) runs over a
-paged spill-able KV cache (:mod:`repro_torch.core.kv_cache`) whose page
-slots come from the same pool arena.  Activation-checkpoint offload
-(host/ssd/recompute tiers) comes with the activation-offload slice.
+Serving (``mode="serve"``) has the uncached full-prefix pass
+(``decode_logits``, the ``decode`` plan) and cached decode over a paged
+spill-able KV cache (:mod:`repro_torch.core.kv_cache`) whose page slots
+come from the same pool arena: the joint ``prefill`` / ``decode_step``;
+the continuous-batching joiner ``prefill(slots=, lengths=)``, which
+scatters only the joiners' pages, and ``decode_step_slots`` over per-slot
+lengths; and the speculative ``verify_step`` / ``verify_step_slots``,
+which step a (batch, K) draft window in one weight pass and return logits
+bitwise equal to K chained steps (the window's positions run at the
+step's own shapes: ``block_verify`` in the adapter, and the head here one
+position at a time).  Activation-checkpoint offload (host/ssd/recompute
+tiers) comes with the activation-offload slice.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import split_positions
 from .buffer_pool import KV_CLASS
 from .dtypes import cast_host, to_host, to_torch, torch_dtype
 from .kv_cache import DecodeSpec, SpillableKVCache
@@ -78,10 +87,10 @@ from .memory_tracker import MemoryTracker
 from .optimizer import OffloadedAdam
 from .overflow import check_region, flat_overflow_check
 from .overlap import DeviceSlots, OverlapStats, SerialWorker, done_future
-from .stream_plan import (ComputeOp, FetchOp, GradWriteOp, KVReadOp,
-                          KVWriteOp, OptimStepOp, OverflowCheckOp, ReleaseOp,
-                          StreamPlan, compile_decode_cached, compile_eval,
-                          compile_prefill, compile_train, resolve_act_policy)
+from .stream_plan import (PLAN_COMPILERS, ComputeOp, FetchOp, GradWriteOp,
+                          KVReadOp, KVWriteOp, OptimStepOp, OverflowCheckOp,
+                          ReleaseOp, StreamPlan, compile_train,
+                          resolve_act_policy)
 from .swapper import ParameterSwapper
 
 COMPUTE_SUFFIX = OffloadedAdam.COMPUTE   # store key suffix of compute weights
@@ -91,6 +100,19 @@ ACT_LATER = ("activation-checkpoint offload (host/ssd/recompute tiers) is "
              "checkpoint on the device")
 
 
+def verify_bucket(n: int) -> int:
+    """Speculative-verify window K bucketed to the next power of two.
+
+    Padding a draft of ``n`` real tokens to the covering power of two
+    keeps the set of window shapes bounded by ``{1, 2, 4, ...}`` however
+    ragged the drafts run.  Padding token K/V is appended and then rolled
+    back with the rejected tail (the accept prefix can never reach into
+    the padding — a draft's real length bounds it)."""
+    if n < 1:
+        raise ValueError(f"verify window must be >= 1 token, got {n}")
+    return 1 << (n - 1).bit_length()
+
+
 class _ExecState:
     """Per-plan-run bindings and carried activations/cotangents."""
 
@@ -98,7 +120,8 @@ class _ExecState:
                  "loss", "logits", "live", "live_slots", "h2d", "grads",
                  "checkpoints", "overflowed", "apply", "optim_begun",
                  "kv", "kv_live", "kv_append", "kv_stage", "kv_slots",
-                 "kv_time", "cache_len", "last_pos", "stage_seq")
+                 "kv_time", "cache_len", "last_pos", "kv_write_slots",
+                 "stage_seq")
 
     def __init__(self, tokens: torch.Tensor,
                  labels: torch.Tensor | None = None, scale: float = 1.0):
@@ -120,8 +143,12 @@ class _ExecState:
         self.kv_stage: dict[str, Future] = {}  # unit -> staged-KV future
         self.kv_slots: dict[str, tuple] = {}   # unit -> kv device-slot tokens
         self.kv_time = 0          # device-cache bucket extent this run
-        self.cache_len = None     # device int: tokens already cached
-        self.last_pos = None      # device int (1,): last prompt index
+        self.cache_len = None     # device int: tokens already cached (0-dim
+        #                           on the joint path, (B,) per slot on the
+        #                           continuous-batching path)
+        self.last_pos = None      # device int: last prompt index (0-dim,
+        #                           or (B,) per row for joiner prefills)
+        self.kv_write_slots = None  # prefill-scatter target slots
         # (kind, unit) per staging-worker submission, in FIFO order —
         # "w" weight stages and "kv" window stages interleave on ONE
         # worker, so the abort path must drain them in this exact order
@@ -415,18 +442,15 @@ class OffloadSession:
     # -- plans --------------------------------------------------------------
 
     def plan(self, name: str) -> StreamPlan:
-        """The session's compiled plan for ``name``
-        (train/eval/prefill/decode_cached)."""
+        """The session's compiled plan for ``name`` (train/eval/decode/
+        prefill/decode_cached/decode_verify)."""
         if name not in self._plans:
             if name == "train":
                 # the resolved per-block tiers ARE the policy
                 self._plans[name] = compile_train(
                     self.model, act_policy=self._act_tiers or None)
             else:
-                compiler = {"eval": compile_eval,
-                            "prefill": compile_prefill,
-                            "decode_cached": compile_decode_cached}[name]
-                self._plans[name] = compiler(self.model)
+                self._plans[name] = PLAN_COMPILERS[name](self.model)
         return self._plans[name]
 
     # -- autograd helpers (executor thread: grad mode is thread-local) -------
@@ -808,18 +832,37 @@ class OffloadSession:
             state.grads[op.unit] = self._embed_bwd(params, state.tokens,
                                                    state.dh)
         elif op.kind == "head_logits":
-            state.logits = model.head_logits(params, state.h)
+            if state.cache_len is None:    # the uncached full-prefix pass
+                state.logits = model.head_logits(params, state.h)
+            else:
+                # cached step or verify window: one (B, 1) product per
+                # position, so a verify position's logits are bitwise the
+                # step's whatever the window's width
+                state.logits = torch.cat(
+                    [model.head_logits(params, h)
+                     for h in split_positions(state.h)], dim=1)
         elif op.kind == "head_logits_last":
             # the last valid prompt position of the padded bucket, picked
-            # by a device index (no host sync, one code path per length)
-            state.logits = model.head_logits(
-                params, state.h.index_select(1, state.last_pos))
+            # by a device index (no host sync, one code path per length):
+            # one position for the whole batch (0-dim) or one per row (B,)
+            pos = state.last_pos
+            h_last = (state.h.index_select(1, pos.reshape(1))
+                      if pos.ndim == 0 else
+                      torch.take_along_dim(state.h, pos[:, None, None],
+                                           dim=1))
+            state.logits = model.head_logits(params, h_last)
         elif op.kind == "block_prefill":
             state.h, k, v = model.block_prefill(params, state.h)
             state.kv_append[op.unit] = (k, v)
         elif op.kind == "block_step":
             k_dev, v_dev = state.kv_live.pop(op.unit)
             state.h, k, v = model.block_step(
+                params, state.h, k_dev, v_dev, state.cache_len,
+                chunk=self.decode_spec.bucket)
+            state.kv_append[op.unit] = (k, v)
+        elif op.kind == "block_verify":
+            k_dev, v_dev = state.kv_live.pop(op.unit)
+            state.h, k, v = model.block_verify(
                 params, state.h, k_dev, v_dev, state.cache_len,
                 chunk=self.decode_spec.bucket)
             state.kv_append[op.unit] = (k, v)
@@ -850,16 +893,21 @@ class OffloadSession:
 
     def _write_kv(self, op: KVWriteOp, state: _ExecState) -> None:
         """Land this unit's new K/V in its host pages (D2H on the compute
-        stream): one token appended to the tail page (``step``) or the
-        whole padded prompt window scattered across pages (``prefill``);
-        the cache spills dirty pages onward past the residency budget."""
+        stream): one token appended to the tail page (``step``), a K-token
+        draft window appended past each slot's length (``verify`` —
+        lengths advance only when the host commits the accepted prefix),
+        or the whole padded prompt window scattered across pages
+        (``prefill``, only the joiners' slots when ``kv_write_slots`` is
+        set); the cache spills dirty pages onward past the residency
+        budget."""
         k, v = state.kv_append.pop(op.unit)
         if op.mode == "prefill":
-            state.kv.write_prefill(op.unit, to_host(k), to_host(v))
-        elif op.mode == "step":
-            state.kv.append(op.unit, to_host(k), to_host(v))
+            state.kv.write_prefill(op.unit, to_host(k), to_host(v),
+                                   slots=state.kv_write_slots)
+        elif op.mode == "verify":
+            state.kv.append_window(op.unit, to_host(k), to_host(v))
         else:
-            raise ValueError(f"KV write mode {op.mode!r} is not ported yet")
+            state.kv.append(op.unit, to_host(k), to_host(v))
 
     # -- gradient write-back -------------------------------------------------
 
@@ -1242,10 +1290,22 @@ class OffloadSession:
         sd = self.policy.adam.state_np_dtype
         return self.store.read_new(f"{unit_name}/{key}.master", sd, shape)
 
-    # -- cached decode (spill-able KV) ---------------------------------------
+    # -- serving -------------------------------------------------------------
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+
+    def _lengths(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int64),
+                               device=self.device)
+
+    def decode_logits(self, tokens: np.ndarray) -> np.ndarray:
+        """One weight-streamed pass over ``tokens`` (batch, time): fp32
+        logits for every position.  The uncached (full-prefix) path —
+        O(T²) over a generation; the ablation baseline."""
+        state = self.execute(self.plan("decode"),
+                             _ExecState(self._tokens(tokens)))
+        return to_host(state.logits)
 
     def open_kv_cache(self) -> SpillableKVCache:
         """A fresh paged spill-able KV cache drawing from this session's
@@ -1273,28 +1333,64 @@ class OffloadSession:
             raise RuntimeError("KV cache is closed")
         return self.decode_spec
 
-    def prefill(self, kv: SpillableKVCache, tokens: np.ndarray) -> np.ndarray:
-        """Prompt pass: cache every block's K/V, return the last prompt
-        position's logits as fp32 (batch, vocab).  Every lane carries the
-        same prompt length and the cache must be empty.  Prompts are
-        right-padded to the spec's time bucket."""
+    def prefill(self, kv: SpillableKVCache, tokens: np.ndarray, *,
+                slots: list[int] | None = None,
+                lengths: list[int] | None = None) -> np.ndarray:
+        """Prompt pass: cache every block's K/V, return the last valid
+        position's logits as fp32 (batch, vocab).  Prompts are right-padded
+        to the spec's time bucket.
+
+        Joint path (``slots=None``): every lane carries the same prompt
+        length and the whole cache must be empty.
+
+        Joiner path (continuous batching): ``slots`` names the freshly
+        joined, empty batch slots being prefilled and ``lengths`` their
+        true prompt lengths (``tokens`` rows are right-padded to the
+        longest).  Only those slots' pages are written (prefill-scatter);
+        the other lanes' rows are computed and discarded, so mid-flight
+        requests are untouched and the shapes stay fixed.  Callers group
+        joiners by prompt *bucket*: a joiner then runs at the shapes a solo
+        prefill of that request would, which keeps continuously batched
+        greedy output equal to decoding each request alone."""
         spec = self._decode_state(kv)
         tokens = np.asarray(tokens)
         if tokens.ndim != 2 or tokens.shape[0] != spec.batch:
             raise ValueError(f"prompts must be (batch={spec.batch}, time), "
                              f"got {tokens.shape}")
-        if kv.length != 0:
-            raise RuntimeError("prefill on a non-empty KV cache; open a "
-                               "fresh one per generation")
         t0 = tokens.shape[1]
+        if slots is None:
+            if kv.length != 0:
+                raise RuntimeError("prefill on a non-empty KV cache; open a "
+                                   "fresh one per generation")
+            last = torch.tensor(t0 - 1, dtype=torch.int64,
+                                device=self.device)
+        else:
+            if lengths is None or len(lengths) != len(slots):
+                raise ValueError("joiner prefill needs lengths, one per slot")
+            for s, n in zip(slots, lengths, strict=True):
+                if s not in kv.active or kv.slot_length(s) != 0:
+                    raise RuntimeError(
+                        f"slot {s} is not a freshly joined empty slot")
+                if not 1 <= n <= t0:
+                    raise ValueError(f"prompt length {n} outside [1, {t0}]")
+            # per-row last valid position; non-joiner rows read position 0
+            # (their logits rows are discarded by the caller)
+            pos = np.zeros(spec.batch, np.int64)
+            for s, n in zip(slots, lengths, strict=True):
+                pos[s] = n - 1
+            last = self._lengths(pos)
         padded = np.zeros((spec.batch, spec.bucket_len(t0)), np.int64)
         padded[:, :t0] = tokens
         state = _ExecState(self._tokens(padded))
         state.kv = kv
-        state.last_pos = torch.tensor([t0 - 1], dtype=torch.int64,
-                                      device=self.device)
+        state.kv_write_slots = slots
+        state.last_pos = last
         state = self.execute(self.plan("prefill"), state)
-        kv.set_length(t0)
+        if slots is None:
+            kv.set_length(t0)
+        else:
+            for s, n in zip(slots, lengths, strict=True):
+                kv.set_slot_length(s, n)
         return to_host(state.logits[:, 0])
 
     def decode_step(self, kv: SpillableKVCache,
@@ -1319,6 +1415,109 @@ class OffloadSession:
         state = self.execute(self.plan("decode_cached"), state)
         kv.advance(1)
         return to_host(state.logits[:, 0])
+
+    def _slot_lengths(self, kv: SpillableKVCache, spec: DecodeSpec,
+                      window: int, what: str) -> np.ndarray:
+        """Per-lane cache lengths (0 for inactive lanes) of a per-slot
+        step or verify pass of ``window`` positions; every active slot
+        must be prefilled and have room for the window."""
+        active = sorted(kv.active)
+        if not active:
+            raise RuntimeError(f"{what} with no active slots")
+        lens = np.zeros(spec.batch, np.int64)
+        for s in active:
+            n = kv.slot_length(s)
+            if n < 1:
+                raise RuntimeError(f"{what} before slot {s}'s prefill")
+            if n + window > spec.max_seq:
+                raise ValueError(
+                    f"KV cache full: slot {s} length {n} + window {window} "
+                    f"exceeds max_seq={spec.max_seq}")
+            lens[s] = n
+        return lens
+
+    def decode_step_slots(self, kv: SpillableKVCache,
+                          tokens: np.ndarray) -> np.ndarray:
+        """One cached decode step over per-slot lengths (continuous
+        batching): every **active** slot's lane appends its token at that
+        slot's own position; inactive lanes carry token 0 and are masked
+        to self-attention only (``cache_len`` 0), their logits discarded.
+        The same ``decode_cached`` plan as :meth:`decode_step` with a (B,)
+        ``cache_len``; the device extent is the time bucket covering the
+        longest active slot, and the attention step's chunked reductions
+        keep each lane's output bitwise a solo decode's."""
+        spec = self._decode_state(kv)
+        tokens = np.asarray(tokens)
+        if tokens.shape != (spec.batch, 1):
+            raise ValueError(f"step tokens must be (batch={spec.batch}, 1), "
+                             f"got {tokens.shape}")
+        lens = self._slot_lengths(kv, spec, 1, "decode_step_slots")
+        state = _ExecState(self._tokens(tokens))
+        state.kv = kv
+        state.kv_time = spec.bucket_len(int(lens.max()))
+        state.cache_len = self._lengths(lens)
+        state = self.execute(self.plan("decode_cached"), state)
+        kv.advance(1)
+        return to_host(state.logits[:, 0])
+
+    def _verify(self, kv: SpillableKVCache, spec: DecodeSpec,
+                tokens: np.ndarray, extent: int,
+                cache_len: torch.Tensor) -> np.ndarray:
+        n = tokens.shape[1]
+        padded = np.zeros((spec.batch, verify_bucket(n)), np.int64)
+        padded[:, :n] = tokens
+        state = _ExecState(self._tokens(padded))
+        state.kv = kv
+        state.kv_time = spec.bucket_len(extent)
+        state.cache_len = cache_len
+        state = self.execute(self.plan("decode_verify"), state)
+        return to_host(state.logits[:, :n])
+
+    def _verify_window(self, spec: DecodeSpec, tokens) -> np.ndarray:
+        tokens = np.asarray(tokens)
+        if tokens.ndim != 2 or tokens.shape[0] != spec.batch or \
+                tokens.shape[1] < 1:
+            raise ValueError(f"verify window must be (batch={spec.batch}, "
+                             f"n >= 1), got {tokens.shape}")
+        return tokens
+
+    def verify_step(self, kv: SpillableKVCache,
+                    tokens: np.ndarray) -> np.ndarray:
+        """Speculative-decode verify: step a ``(batch, n)`` draft window in
+        ONE streamed pass over the weights and return all ``n`` positions'
+        next-token logits as fp32 ``(batch, n, vocab)``.  Position ``j``'s
+        row is bitwise what :meth:`decode_step` would have produced after
+        the first ``j`` draft tokens were appended; the host commits the
+        accepted prefix and rolls the cache back over the rejected tail
+        (:meth:`~SpillableKVCache.rollback`).  The window is padded to
+        :func:`verify_bucket`; slot lengths do NOT advance here."""
+        spec = self._decode_state(kv)
+        tokens = self._verify_window(spec, tokens)
+        k_pad = verify_bucket(tokens.shape[1])
+        if kv.length < 1:
+            raise RuntimeError("verify_step before prefill")
+        if kv.length + k_pad > spec.max_seq:
+            raise ValueError(
+                f"KV cache full: length {kv.length} + padded window "
+                f"{k_pad} exceeds max_seq={spec.max_seq}")
+        cache_len = torch.tensor(kv.length, dtype=torch.int64,
+                                 device=self.device)
+        return self._verify(kv, spec, tokens, kv.length + k_pad, cache_len)
+
+    def verify_step_slots(self, kv: SpillableKVCache,
+                          tokens: np.ndarray) -> np.ndarray:
+        """:meth:`verify_step` over per-slot lengths (continuous
+        batching): each **active** slot's lane steps its own draft window
+        at that slot's position; inactive lanes carry token 0, masked to
+        self-attention only, logits discarded.  Slots accept and roll back
+        independently.  The extent is the time bucket covering the
+        longest active slot plus the padded window."""
+        spec = self._decode_state(kv)
+        tokens = self._verify_window(spec, tokens)
+        k_pad = verify_bucket(tokens.shape[1])
+        lens = self._slot_lengths(kv, spec, k_pad, "verify_step_slots")
+        return self._verify(kv, spec, tokens, int(lens.max()) + k_pad,
+                            self._lengths(lens))
 
     def overlap_snapshot(self) -> dict:
         """Point-in-time copy of the overlap-pipeline stall counters

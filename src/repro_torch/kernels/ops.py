@@ -8,6 +8,9 @@ failure raises; nothing falls back to the plain version).
 
 from __future__ import annotations
 
+import torch
+
+from .fused_adam import fused_adam_cuda, fused_adam_plain
 from .overflow_check import (overflow_check_cuda, overflow_check_plain,
                              overflow_flag_cuda_)
 from .swa_attention import swa_attention_cuda, swa_attention_plain
@@ -41,3 +44,17 @@ def overflow_flag_(x, flag, lo: int = 0, hi: int | None = None):
     if _device_type(x, "overflow_flag_") == "cuda":
         return overflow_flag_cuda_(x, flag, lo, hi)
     return flag.bitwise_or_(overflow_check_plain(x, lo, hi).to(flag.dtype))
+
+
+def fused_adam(p, g, m, v, step, *, lr=1e-4, beta1=0.9, beta2=0.999,
+               eps=1e-8, weight_decay=0.0, out_dtype=torch.bfloat16):
+    """One fused AdamW step on fp32 ``p, g, m, v`` of any common shape;
+    returns ``(p_new, m_new, v_new, w16)`` with ``w16`` the new weights in
+    ``out_dtype``.  ``step`` is the 1-based step count of the bias
+    correction, a runtime value."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, out_dtype=out_dtype)
+    if _device_type(p, "fused_adam") == "cuda":
+        return fused_adam_cuda(*(t.contiguous() for t in (p, g, m, v)),
+                               step, **kw)
+    return fused_adam_plain(p, g, m, v, step, **kw)

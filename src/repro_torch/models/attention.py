@@ -9,6 +9,9 @@ Port of the GQA half of ``src/repro/models/attention.py``.  Activations are
   output comes back in the (B, S, H, D) layout, without copies.
 * :func:`gqa_step` is plain torch: no TPU kernel computes it.  It keeps the
   reference's ``chunk`` extent-invariance exactly.
+* :func:`gqa_verify` is the speculative-decode window: each position runs
+  gqa_step's core at the step's own shapes on the window-merged cache, so
+  its output is bitwise K chained steps.
 * :func:`gqa_attention` is the full-sequence attention of a training
   block: plain torch through :func:`attention_scores`, differentiated by
   autograd, as the reference's training block runs its plain path (no
@@ -25,7 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from .layers import apply_rope, dense, rms_norm
+from .layers import apply_rope, dense, rms_norm, split_positions
 
 NEG_INF = -1e30
 
@@ -128,28 +131,99 @@ def gqa_step(params, x, cfg, k_cache, v_cache, cache_len, *, window=None,
     ``None`` keeps the whole axis as one chunk.
     """
     b = x.shape[0]
-    cl = torch.as_tensor(cache_len, dtype=torch.int64, device=x.device)
-    cl_col = cl.reshape(-1, 1)        # scalar -> (1,1); per-row -> (B,1)
-    positions = cl_col.expand(b, 1)
-    q, k_new, v_new = gqa_project_qkv(params, x, cfg, positions)
+    cl_col = _cache_len_col(cache_len, x.device)
+    q, k_new, v_new = gqa_project_qkv(params, x, cfg, cl_col.expand(b, 1))
+    w = cfg.sliding_window if window is None else window
+    out = _attend_step(q, k_new, v_new, k_cache, v_cache, cl_col, cfg,
+                       chunk=chunk, window=w, dtype=x.dtype)
+    return dense(out, params["attn.w_o"]), k_new, v_new
+
+
+def gqa_verify(params, x, cfg, k_cache, v_cache, cache_len, *, window=None,
+               chunk=None):
+    """k-query attention for speculative-decode verification.
+
+    x: (B, K, D) — a window of K draft tokens per row, query j at absolute
+    position ``cache_len + j``; k_cache/v_cache as :func:`gqa_step` (the
+    window's K/V are not in them yet); cache_len: scalar or (B,).  Returns
+    (out, k_new, v_new) with k_new/v_new (B, K, KH, D) for the caller to
+    append.
+
+    Position j's output is bitwise what K sequential :func:`gqa_step`
+    calls would give (append token 0, step token 1, ...), which greedy
+    speculative decoding needs to equal plain greedy decoding.  The
+    reference's reduction structure is kept — the window's K/V merged onto
+    the absolute chunk grid at [cache_len, cache_len + K), query j masked
+    to its own prefix ``idx < cache_len + j``, its self term anchoring the
+    max, the chunks combined in gqa_step's fixed order — and every
+    position runs at the step's own shapes: its q/k/v and output
+    projections are (B, 1) products and its attention is gqa_step's core
+    on the merged grid.  Batching the K positions into one product would
+    let cuBLAS (or the CPU's GEMM) pick another reduction order for the
+    larger row count, and the logits would differ in the last bits.
+    """
+    b, kq, _ = x.shape
+    cl_col = _cache_len_col(cache_len, x.device)
+    cols = [gqa_project_qkv(params, xj, cfg, (cl_col + j).expand(b, 1))
+            for j, xj in enumerate(split_positions(x))]
+    k_new = torch.cat([c[1] for c in cols], dim=1)
+    v_new = torch.cat([c[2] for c in cols], dim=1)
+    w = cfg.sliding_window if window is None else window
+
+    # the window's K/V onto the absolute position grid: position
+    # cache_len + r takes window row r, every other position the cache's
+    s_bucket = k_cache.shape[1]
+    rel = torch.arange(s_bucket, device=x.device)[None, :] - cl_col
+    in_win = ((rel >= 0) & (rel < kq)).expand(b, s_bucket)[:, :, None, None]
+    gidx = rel.clamp(0, kq - 1).expand(b, s_bucket)[:, :, None, None]
+    gidx = gidx.expand(-1, -1, *k_new.shape[2:])
+    merged_k = torch.where(in_win, torch.gather(k_new, 1, gidx), k_cache)
+    merged_v = torch.where(in_win, torch.gather(v_new, 1, gidx), v_cache)
+
+    outs = []
+    for j, (q, kj, vj) in enumerate(cols):
+        att = _attend_step(q, kj, vj, merged_k, merged_v, cl_col + j, cfg,
+                           chunk=chunk, window=w, dtype=x.dtype)
+        outs.append(dense(att, params["attn.w_o"]))
+    return torch.cat(outs, dim=1), k_new, v_new
+
+
+def _cache_len_col(cache_len, device):
+    """cache_len as a (1, 1) (scalar) or (B, 1) (per-row) int64 tensor."""
+    cl = torch.as_tensor(cache_len, dtype=torch.int64, device=device)
+    return cl.reshape(-1, 1)
+
+
+def _attend_step(q, k_new, v_new, k_cache, v_cache, cl_col, cfg, *, chunk,
+                 window, dtype):
+    """One query position per row against a cache slice: the attention
+    core of :func:`gqa_step` (and of each :func:`gqa_verify` position).
+
+    q: (B, 1, H, D); k_new/v_new: (B, 1, KH, D), the query's own K/V at
+    position ``cl_col``; cache positions < ``cl_col`` are valid.  Returns
+    the (B, 1, H*D) output before the output projection.  Every operand is
+    made contiguous, so equal values give equal bits whatever view they
+    came from."""
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    b = q.shape[0]
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    scale = math.sqrt(cfg.head_dim)
     s_bucket = k_cache.shape[1]
     c = s_bucket if chunk is None else int(chunk)
-    w = cfg.sliding_window if window is None else window
-    scale = math.sqrt(cfg.head_dim)
-    neg = _neg_inf(x.device)
+    neg = _neg_inf(q.device)
 
     # per-chunk masked scores on the absolute grid [0, c), [c, 2c), ...
     score_chunks, v_chunks = [], []
     for lo in range(0, s_bucket, c):
         hi = min(lo + c, s_bucket)
-        sc = _scores(q, _repeat_kv(k_cache[:, lo:hi], n_rep)) / scale
-        idx = torch.arange(lo, hi, device=x.device)[None, :]
+        sc = _scores(q, _repeat_kv(k_cache[:, lo:hi].contiguous(),
+                                   n_rep)) / scale
+        idx = torch.arange(lo, hi, device=q.device)[None, :]
         valid = idx < cl_col                          # (1 or B, hi-lo)
-        if w:
-            valid = valid & (idx > cl_col - w)
+        if window:
+            valid = valid & (idx > cl_col - window)
         score_chunks.append(torch.where(valid[:, None, None, :], sc, neg))
-        v_chunks.append(_repeat_kv(v_cache[:, lo:hi], n_rep))
+        v_chunks.append(_repeat_kv(v_cache[:, lo:hi].contiguous(), n_rep))
     # the new token attends to itself (always in window): its score
     # anchors the max, so every row's m is finite
     s_new = _scores(q, _repeat_kv(k_new, n_rep)) / scale
@@ -162,11 +236,9 @@ def gqa_step(params, x, cfg, k_cache, v_cache, cache_len, *, window=None,
     for sc in score_chunks:
         denom = denom + torch.exp(sc - m).sum(dim=-1, keepdim=True)
 
-    out = (torch.exp(s_new - m) / denom).to(x.dtype) * \
+    out = (torch.exp(s_new - m) / denom).to(dtype) * \
         _repeat_kv(v_new, n_rep).transpose(1, 2)          # (B,H,1,D)
     for sc, vv_c in zip(score_chunks, v_chunks, strict=True):
-        p_c = (torch.exp(sc - m) / denom).to(x.dtype)
-        out = out + torch.einsum("bhqk,bkhd->bhqd", p_c, vv_c.to(x.dtype))
-    out = out.transpose(1, 2).reshape(b, 1, -1)           # (B,1,H*D)
-    out = dense(out, params["attn.w_o"])
-    return out, k_new, v_new
+        p_c = (torch.exp(sc - m) / denom).to(dtype)
+        out = out + torch.einsum("bhqk,bkhd->bhqd", p_c, vv_c.to(dtype))
+    return out.transpose(1, 2).reshape(b, 1, -1)          # (B,1,H*D)

@@ -32,6 +32,16 @@ def dense(x, w):
     return torch.matmul(x.to(res), w.to(res)).to(x.dtype)
 
 
+def split_positions(x) -> list:
+    """The time positions of a (B, T, ...) tensor as T contiguous
+    (B, 1, ...) tensors.  A product or a row reduction over one of them
+    runs at a (B, 1) shape whatever T is: the cached decode path computes a
+    speculative window position by position so that its results do not
+    depend on the window's width (a GEMM's or a reduction's order may
+    change with the number of rows)."""
+    return [x[:, j:j + 1].contiguous() for j in range(x.shape[1])]
+
+
 def gated_mlp(x, w_up, w_down, kind: str, w_gate=None):
     """SwiGLU / GeGLU / plain-GELU MLP (separate gate and up tensors)."""
     h = dense(x, w_up)

@@ -1,6 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions,
-the page-locked allocator backings, cached decode and the training step
-on the device.
+the page-locked allocator backings, cached decode, continuous batching,
+speculative verify and the training step on the device.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device.  The file imports neither JAX nor the reference package, so it
@@ -23,12 +23,14 @@ from repro_torch.core import (AlignmentFreeAllocator, DecodeSpec,
                               PowerOfTwoCachingAllocator)
 from repro_torch.core.model_adapter import make_offloadable_lm
 from repro_torch.kernels import ops
+from repro_torch.kernels.fused_adam import fused_adam_cuda, fused_adam_plain
 from repro_torch.kernels.overflow_check import (overflow_check_cuda,
                                                 overflow_check_plain,
                                                 overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (swa_attention_cuda,
                                                swa_attention_plain)
-from repro_torch.serve import OffloadedDecoder
+from repro_torch.serve import (OffloadedDecoder, Request, ServingEngine,
+                               SpecConfig)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -262,3 +264,183 @@ def test_train_sync_equals_full_on_the_card(cuda, tmp_path):
     assert sync == full
     assert s_facts["eval"] == f_facts["eval"]
     np.testing.assert_array_equal(s_facts["master"], f_facts["master"])
+
+
+# -- the fused AdamW step ------------------------------------------------------
+
+def _adam_inputs(shape, seed, *, moments=True):
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal(shape)
+    g = rng.standard_normal(shape)
+    m = rng.standard_normal(shape) * 0.1 if moments else np.zeros(shape)
+    v = np.abs(rng.standard_normal(shape)) * 0.01 if moments \
+        else np.zeros(shape)
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in
+            (p, g, m, v)]
+
+
+def _adam_equal(ins, step, **kw):
+    """Kernel and plain version on the same CUDA tensors: p, m, v and w16
+    bit for bit (explicitly rounded fp32 ops in both, no contraction)."""
+    before = fused_adam_cuda.launches
+    got = fused_adam_cuda(*ins, step, **kw)
+    torch.cuda.synchronize()
+    want = fused_adam_plain(*ins, step, **kw)
+    assert fused_adam_cuda.launches == before + 1
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("shape", [(16,), (100, 3), (8, 8, 9), (2048,)])
+@pytest.mark.parametrize("step", [1, 10, 1000])
+def test_adam_kernel_matches_plain_sweep(cuda, shape, step):
+    """The reference sweep (tests/test_kernels.py): lr 3e-3, weight decay
+    0.05, bf16 w16."""
+    _adam_equal(_adam_inputs(shape, step), step, lr=3e-3, weight_decay=0.05)
+
+
+@pytest.mark.parametrize("n", [1, 3, 127, 129, 100_001])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float16,
+                                       torch.float32])
+def test_adam_kernel_ragged_sizes_and_out_dtypes(cuda, n, out_dtype):
+    _adam_equal(_adam_inputs((n,), n), 7, lr=1e-3, out_dtype=out_dtype)
+
+
+def test_adam_kernel_misaligned_inputs_and_trajectory(cuda):
+    """Inputs that start mid-vector take the scalar path; a five-step
+    trajectory stays bitwise the plain version's; the dispatcher reaches
+    the kernel and makes strided inputs contiguous."""
+    ins = [t[1:] for t in _adam_inputs((4097,), 0)]
+    _adam_equal(ins, 3, weight_decay=0.01)
+    p, g0, m, v = _adam_inputs((512,), 1, moments=False)
+    pr, mr, vr = p, m, v
+    for t in range(1, 6):
+        g = g0 * (0.9 ** t)
+        p, m, v, _ = fused_adam_cuda(p, g, m, v, t, lr=1e-2)
+        pr, mr, vr, _ = fused_adam_plain(pr, g, mr, vr, t, lr=1e-2)
+    assert torch.equal(p, pr) and torch.equal(m, mr) and torch.equal(v, vr)
+    x = _adam_inputs((64, 32), 2)
+    before = fused_adam_cuda.launches
+    got = ops.fused_adam(*(t.t() for t in x), 4)
+    assert fused_adam_cuda.launches == before + 1
+    want = fused_adam_plain(*(t.t() for t in x), 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+def test_adam_kernel_rejects_what_it_does_not_take(cuda):
+    p, g, m, v = _adam_inputs((64,), 0)
+    with pytest.raises(TypeError):
+        fused_adam_cuda(p.double(), g, m, v, 1)
+    with pytest.raises(TypeError, match="out_dtype"):
+        fused_adam_cuda(p, g, m, v, 1, out_dtype=torch.int8)
+    with pytest.raises(ValueError, match="shapes"):
+        fused_adam_cuda(p, g[:32], m, v, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adam_cuda(*(t.view(8, 8).t() for t in (p, g, m, v)), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam_cuda(p.cpu(), g, m, v, 1)
+
+
+# -- serving breadth on the card: continuous batching and spec verify -----------
+
+SERVE_CFG = ModelConfig(name="tiny", family="dense", n_layers=3, d_model=64,
+                        n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                        qk_norm=True)
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.005
+        return self.t
+
+    def sleep(self, d):
+        self.t += d
+
+
+def _decoder(root, compute, **spec_kw):
+    model = make_offloadable_lm(SERVE_CFG, 0, getattr(torch, compute),
+                                device="cuda")
+    policy = (OffloadPolicy.preset("memascend").with_store(root)
+              .with_adam(compute_dtype=compute).build())
+    return OffloadedDecoder(model, policy, decode=DecodeSpec(**spec_kw))
+
+
+def _requests():
+    rng = np.random.default_rng(3)
+    return [Request(rid=f"r{i}", prompt=rng.integers(3, 256, n),
+                    max_new_tokens=m, arrival=a)
+            for i, (n, m, a) in enumerate(
+                [(3, 6, 0.0), (6, 4, 0.0), (19, 5, 0.02), (5, 6, 0.05)])]
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_continuous_batching_equals_solo_on_the_card(cuda, tmp_path,
+                                                      compute):
+    """Each request's continuously batched greedy tokens equal the same
+    request served alone; each joiner group's prefill launches the
+    attention kernel once per block."""
+    with _decoder(str(tmp_path), compute, batch=2, max_seq=32,
+                  bucket=8) as dec:
+        clk = _Clock()
+        before = swa_attention_cuda.launches
+        report = ServingEngine(dec, clock=clk, sleep=clk.sleep).run(
+            _requests())
+        launched = swa_attention_cuda.launches - before
+        assert launched == SERVE_CFG.n_layers * report.prefills
+        assert report.kv_stats["reclaims"] > 0
+        for r in _requests():
+            clk = _Clock()
+            solo = ServingEngine(dec, clock=clk, sleep=clk.sleep).run(
+                [Request(rid=r.rid, prompt=r.prompt,
+                         max_new_tokens=r.max_new_tokens)])
+            got = next(x for x in report.requests if x.rid == r.rid)
+            assert got.output == solo.requests[0].output
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_verify_equals_step_chain_and_spec_equals_greedy_on_the_card(
+        cuda, tmp_path, compute):
+    """verify_step logits of a 5-token window are bitwise the decode_step
+    chain's on a fresh cache (joint and ragged per-slot), and
+    generate(spec=) emits the plain greedy tokens."""
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(3, 256, (2, 7))
+    window = rng.integers(3, 256, (2, 5))
+    with _decoder(str(tmp_path), compute, batch=2, max_seq=96,
+                  bucket=16) as dec:
+        s = dec.session
+        kv = s.open_kv_cache()
+        s.prefill(kv, prompt)
+        seq = [s.decode_step(kv, window[:, j:j + 1]) for j in range(5)]
+        kv.close()
+        kv = s.open_kv_cache()
+        s.prefill(kv, prompt)
+        ver = s.verify_step(kv, window)
+        kv.close()
+        for j in range(5):
+            assert np.array_equal(ver[:, j], seq[j])
+        # ragged per-slot lengths
+        kv = s.open_kv_cache()
+        s.prefill(kv, prompt)
+        kv.rollback(0, 5)
+        seq = [s.decode_step_slots(kv, window[:, j:j + 1])
+               for j in range(3)]
+        kv.close()
+        kv = s.open_kv_cache()
+        s.prefill(kv, prompt)
+        kv.rollback(0, 5)
+        ver = s.verify_step_slots(kv, window[:, :3])
+        kv.close()
+        for j in range(3):
+            assert np.array_equal(ver[:, j], seq[j])
+        pat = rng.integers(3, 40, 6)
+        prompts = np.tile(pat, 4)[None, :].repeat(2, axis=0)
+        plain = dec.generate(prompts, 24)
+        fast = dec.generate(prompts, 24, spec=SpecConfig(k=4))
+        assert np.array_equal(plain, fast)
+        assert dec.spec_stats.accepted_per_step > 1.0

@@ -11,9 +11,16 @@ port's own identities and its failure paths.
   near-tie flip sends the two runs down different continuations.
 * within the port: ``sync`` == ``full`` overlap and a 2-page spilling KV
   budget == all-resident, token for token.
+* uncached (full-prefix) decode, ``decode_logits`` / ``use_cache=False``:
+  fp32 logits within 1e-5 of the reference's (row-max scaled) and tokens
+  identical to the reference's and to the port's cached path; at bf16 the
+  first step's logits within the 8-ULP bound of the cached prefill's (the
+  prefill's kernel keeps probabilities in fp32, the plain attention in
+  bf16).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -184,12 +191,51 @@ def test_entry_points_refuse_what_is_not_ported(tmp_store_root):
     with pytest.raises(NotImplementedError, match="activation-offload"):
         OffloadSession(model, policy, mode="train")
     with OffloadedDecoder(model, policy) as dec:
+        # without a DecodeSpec the decoder runs the uncached path; the
+        # cached one needs the spec's KV page slots in the pool census
         with pytest.raises(RuntimeError, match="DecodeSpec"):
-            dec.generate(np.ones((2, 3), np.int32), 2)
+            dec.generate(np.ones((2, 3), np.int32), 2, use_cache=True)
     moe = ModelConfig(**{**KW, "name": "tiny-moe"},
                       moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
     with pytest.raises(NotImplementedError, match="MoE"):
         make_offloadable_lm(moe, 0, device="cpu")
+
+
+def test_uncached_decode_matches_reference_and_cached(units, prompts,
+                                                      tmp_store_root):
+    jpol = (JPolicy.preset("memascend").with_store(tmp_store_root + "/j")
+            .with_adam(compute_dtype="float32").build())
+    with JDecoder(jax_lm(JCFG, jax.random.PRNGKey(0), jnp.float32),
+                  jpol) as dec:
+        ref_logits = np.asarray(dec.session.decode_logits(prompts))
+        ref = dec.generate(prompts, 4)
+    model = from_numpy_units(TCFG, units, torch.float32, device="cpu")
+    with OffloadedDecoder(model, _policy(tmp_store_root + "/t", "float32"),
+                          decode=DecodeSpec(**_spec())) as dec:
+        logits = dec.session.decode_logits(prompts)
+        got = dec.generate(prompts, 4, use_cache=False)
+        cached = dec.generate(prompts, 4)
+    assert logits.shape == (2, 6, 256) and logits.dtype == np.float32
+    scale = np.abs(ref_logits).max(-1, keepdims=True)
+    assert (np.abs(logits - ref_logits) / scale).max() <= 1e-5
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, cached)
+
+
+def test_bf16_uncached_first_step_within_ulp_bound_of_prefill(
+        units, prompts, tmp_store_root):
+    model = from_numpy_units(TCFG, units, torch.bfloat16, device="cpu")
+    with OffloadedDecoder(model, _policy(tmp_store_root, "bfloat16"),
+                          decode=DecodeSpec(**_spec())) as dec:
+        first = dec.step_logits(prompts)
+        s = dec.session
+        kv = s.open_kv_cache()
+        try:
+            pre = s.prefill(kv, prompts)
+        finally:
+            kv.close()
+    scale = np.maximum(np.abs(pre).max(-1, keepdims=True), 1.0)
+    assert (np.abs(first - pre) / scale).max() <= ULP_TOL
 
 
 def test_cuda_request_without_a_card_raises():
