@@ -9,12 +9,17 @@ Phases (each raises on failure; the script exits non-zero):
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    nvcc (one process per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card: the
-   reference sweeps, plus for attention ``causal=False``, lengths no tile
-   divides and the prefill shape, for the overflow screen nd shapes,
-   regions whose edges fall mid-vector and the embedding gradient's size,
-   and for fused AdamW ragged sizes, fp16/fp32 ``w16``, misaligned inputs
-   and a five-step trajectory (bit for bit);
-4. time each kernel at its main path's shape (CUDA events, median of 20),
+   reference sweeps, plus for attention fp16 and D-256 cases,
+   ``causal=False``, lengths no tile divides and the prefill shape (each
+   case printing the kernel it took: tensor cores for bf16/fp16, SIMT for
+   fp32), for the overflow screen nd shapes, regions whose edges fall
+   mid-vector and the embedding gradient's size, and for fused AdamW
+   ragged sizes, fp16/fp32 ``w16``, misaligned inputs and a five-step
+   trajectory (bit for bit); the tensor-core attention kernel's registers,
+   spills and shared memory from the ptxas report;
+4. time each kernel at its main path's shape (CUDA events, median of 20
+   samples of back-to-back calls queued behind a GPU-side spin),
+   attention also at a 4096-token prompt,
    its plain version, one PyTorch library call computing the same
    function (a yardstick only: the port never calls it) and the bound,
    the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s
@@ -22,8 +27,9 @@ Phases (each raises on failure; the script exits non-zero):
 5. cached decode: SSD-offloaded decode of qwen3-4b at full width and
    ``--layers`` depth (random weights from ``--seed``) through
    ``OffloadedDecoder.generate`` under the ``memascend`` policy with full
-   overlap; the attention kernel's launch count is zeroed just before and
-   read just after; then the first-token logits are held against a
+   overlap; the attention kernel's launch counts (total and per path) are
+   zeroed just before and read just after, every launch on the tensor
+   cores; then the first-token logits are held against a
    device-resident forward of the same weights through the plain
    attention;
 6. training: three ``OffloadSession.train_step``s and one ``eval_loss`` of
@@ -46,8 +52,8 @@ Phases (each raises on failure; the script exits non-zero):
       the cached prefill's, token agreement with the cached path;
    b. continuous batching, ``ServingEngine.run`` over 8 requests with
       seeded prompts of 64-448 tokens, 8-16 new tokens and arrivals over
-      ~2 s: every request done, one attention launch per block per prefill
-      group, retired slots' pages reclaimed, two requests re-run alone
+      ~2 s: every request done, one tensor-core attention launch per
+      block per prefill group, retired slots' pages reclaimed, two requests re-run alone
       through a fresh engine give the same tokens;
    c. speculative decode, ``generate(spec=SpecConfig(k=4))`` on prompts
       that repeat a seeded 32-token pattern to 256 tokens, equal to the
@@ -93,7 +99,7 @@ from repro_torch.kernels.fused_adam import (  # noqa: E402
 from repro_torch.kernels.overflow_check import (  # noqa: E402
     overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
-    swa_attention_cuda, swa_attention_plain)
+    attention_path, swa_attention_cuda, swa_attention_plain)
 from repro_torch.models.attention import gqa_project_qkv  # noqa: E402
 from repro_torch.models.layers import (dense, embed_lookup,  # noqa: E402
                                        lm_logits, rms_norm)
@@ -136,19 +142,37 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median ms of one call over ``reps`` event-timed calls."""
+# ~2.5-3 ms of GPU-side spin (torch.cuda._sleep counts SM clock cycles)
+QUEUE_CYCLES = 5_000_000
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, fill_ms: float = 2.0) -> float:
+    """Median over ``reps`` event-timed samples of one call's device time.
+    A sample runs enough back-to-back calls to fill ~``fill_ms`` and
+    divides by their number, and starts behind a GPU-side spin long
+    enough for the host to queue all of them: one call between two events,
+    or calls the device runs faster than the host issues them, would also
+    time the Python wrapper's host work."""
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    inner = max(1, min(20, int(fill_ms / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -160,21 +184,34 @@ def _qkv(gen, b, h, kh, s, d, dtype):
     return rnd(b, h, s, d), rnd(b, kh, s, d), rnd(b, kh, s, d)
 
 
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 1e-2}
+LONG_PROMPT = 4096
+
+
 def check_attention(gen) -> float:
     """Kernel vs plain on the card; returns the max error at the main
     path's shape.  Tolerances are the reference sweep's: fp32 2e-5 (same
-    math, other summation order), bf16 3e-2 (one output rounding)."""
+    math, other summation order), bf16 3e-2 (one output rounding); fp16
+    1e-2 (the tensor-core path rounds P and the output to fp16, whose ULP
+    is 8x finer than bf16's; 1e-2 covers a one-ULP output flip at |o| in
+    [4, 8)).  Each case prints the kernel it took."""
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for h, kh in ((4, 4), (4, 2), (8, 1)):
             for window in (0, 64, 128):
                 cases.append((dtype, (2, h, kh, 256, 32), window, True))
     cases += [(torch.float32, (1, 2, 2, 128, 16), 0, False),
               (torch.bfloat16, (2, 8, 2, 200, 64), 0, True),
               (torch.float32, (1, 4, 2, 77, 128), 32, True),
-              (torch.bfloat16, (1, 4, 1, 130, 256), 0, False)]
+              (torch.bfloat16, (1, 4, 1, 130, 256), 0, False),
+              (torch.bfloat16, (2, 8, 2, 300, 256), 128, True),
+              (torch.bfloat16, (1, 8, 1, 513, 256), 0, True),
+              (torch.float16, (1, 4, 1, 130, 256), 0, False),
+              (torch.float16, (2, 8, 1, 511, 64), 500, True),
+              (torch.float16, (1, 8, 2, 700, 128), 0, False)]
     main_shape = (BATCH, 32, 8, PROMPT, 128)
     cases.append((torch.bfloat16, main_shape, 0, True))
+    cases.append((torch.float16, main_shape, 0, True))
     main_err = None
     for dtype, (b, h, kh, s, d), window, causal in cases:
         q, k, v = _qkv(gen, b, h, kh, s, d, dtype)
@@ -182,21 +219,22 @@ def check_attention(gen) -> float:
         torch.cuda.synchronize()
         ref = swa_attention_plain(q, k, v, window=window, causal=causal)
         err = (out.float() - ref.float()).abs().max().item()
-        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        tol = ATTN_TOL[dtype]
         print(f"  swa_attention {str(dtype)[6:]:8s} B{b} H{h} KH{kh} S{s} "
-              f"D{d} window {window} causal {causal}: max err {err:.3e} "
-              f"(tol {tol:g})")
+              f"D{d} window {window} causal {causal}: "
+              f"{attention_path(dtype):11s} max err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise AssertionError(f"swa_attention disagrees with its plain "
                                  f"version: {err} > {tol}")
-        if (b, h, kh, s, d) == main_shape:
+        if (b, h, kh, s, d) == main_shape and dtype == torch.bfloat16:
             main_err = err
     return main_err
 
 
-def time_attention(gen) -> dict:
-    """Times at the main path's prefill shape (bf16, causal, window 0)."""
-    b, h, kh, s, d = BATCH, 32, 8, PROMPT, 128
+def time_attention(gen, b: int, s: int) -> dict:
+    """Times at B ``b``, H 32, KH 8, S ``s``, D 128, bf16, causal, window
+    0: the main path's prefill shape (B 4, S 512) and a long prompt."""
+    h, kh, d = 32, 8, 128
     q, k, v = _qkv(gen, b, h, kh, s, d, torch.bfloat16)
     ms = cuda_ms(lambda: swa_attention_cuda(q, k, v))
     plain_ms = cuda_ms(lambda: swa_attention_plain(q, k, v))
@@ -209,7 +247,43 @@ def time_attention(gen) -> dict:
     flops_ms = 1e3 * flops / BF16_FLOPS_PER_S
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "tflops": flops / (ms * 1e9)}
+
+
+def attention_build(report: str) -> dict:
+    """Registers, spills and shared memory of the tensor-core kernel at
+    D 128 (bf16), from nvcc's ptxas report and the library."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if ("Function properties for" in line and "swa_tc_kernel" in line
+                and "bfloat16Li128E" in line):
+            spill = lines[i + 1].split()
+            used = lines[i + 2].split()
+            return {"registers": int(used[used.index("registers,") - 1]),
+                    "spill_store_bytes": int(spill[spill.index("spill") - 2]),
+                    "smem_bytes": _build.library(
+                        "swa_attention").swa_attention_tc_smem_bytes(128)}
+    raise AssertionError("no ptxas report for the tensor-core attention "
+                         "kernel at D 128")
+
+
+def zero_attention_counts() -> None:
+    swa_attention_cuda.launches = 0
+    for path in swa_attention_cuda.path_launches:
+        swa_attention_cuda.path_launches[path] = 0
+
+
+def check_attention_counts(expect: int, what: str) -> dict:
+    """The run launched the kernel ``expect`` times, every one on the
+    tensor-core path (the main path is bf16)."""
+    total = swa_attention_cuda.launches
+    paths = dict(swa_attention_cuda.path_launches)
+    if total != expect or paths != {"tensor_core": expect, "simt": 0}:
+        raise AssertionError(f"swa_attention launched {total} times "
+                             f"{paths} in {what}; expected {expect}, all "
+                             f"on the tensor cores")
+    return paths
 
 
 # -- phase 3 + 4: the overflow-screen kernel ----------------------------------
@@ -491,16 +565,14 @@ def run_main_path(args, workdir: str) -> dict:
         pinned = slot.is_pinned()
         torch.cuda.synchronize()
 
-        swa_attention_cuda.launches = 0
+        zero_attention_counts()
         t1 = time.perf_counter()
         tokens = dec.generate(prompts, args.new_tokens)
         torch.cuda.synchronize()
         generate_s = time.perf_counter() - t1
         launches = swa_attention_cuda.launches
-
-        if launches != cfg.n_layers:
-            raise AssertionError(f"swa_attention launched {launches} times "
-                                 f"in one prefill of {cfg.n_layers} blocks")
+        paths = check_attention_counts(
+            cfg.n_layers, f"one prefill of {cfg.n_layers} blocks")
         if tokens.shape != (BATCH, args.new_tokens) or \
                 tokens.min() < 0 or tokens.max() >= cfg.vocab:
             raise AssertionError(f"bad generated tokens {tokens.shape}")
@@ -579,6 +651,7 @@ def run_main_path(args, workdir: str) -> dict:
         "pinned_requested_bytes": requested,
         "pinned_reserved_bytes": reserved,
         "slot_is_pinned": pinned, "swa_launches": launches,
+        "swa_path_launches": paths,
         "logit_max_rel_diff": rel,
         # device time of one profiled step (kernels + copies, summed over
         # the compute and copy streams) over an unprofiled step's wall time
@@ -935,7 +1008,7 @@ def run_continuous(cfg, dec, rng) -> dict:
     reqs = _requests(cfg, rng)
     engine = ServingEngine(dec)
     torch.cuda.synchronize()
-    swa_attention_cuda.launches = 0
+    zero_attention_counts()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -945,10 +1018,9 @@ def run_continuous(cfg, dec, rng) -> dict:
     states = [r.state for r in report.requests]
     if states != [RequestState.DONE] * N_REQUESTS:
         raise AssertionError(f"request states {states}")
-    if launches != cfg.n_layers * report.prefills:
-        raise AssertionError(f"swa_attention launched {launches} times for "
-                             f"{report.prefills} prefill groups of "
-                             f"{cfg.n_layers} blocks")
+    paths = check_attention_counts(
+        cfg.n_layers * report.prefills,
+        f"{report.prefills} prefill groups of {cfg.n_layers} blocks")
     if not report.kv_stats["reclaims"] > 0:
         raise AssertionError("retired slots' pages were not reclaimed")
     for r in report.requests:
@@ -975,6 +1047,7 @@ def run_continuous(cfg, dec, rng) -> dict:
            "prefill_groups": report.prefills,
            "decode_steps": report.decode_steps,
            "swa_launches": launches,
+           "swa_path_launches": paths,
            "kv_reclaims": report.kv_stats["reclaims"],
            "device_busy_ms": busy_ms or None,
            "device_idle_share": (1.0 - busy_ms / (1e3 * report.duration_s))
@@ -1107,8 +1180,9 @@ def main() -> int:
 
     t = time.perf_counter()
     reports = _build.build_all()
-    print(f"build: {sorted(reports) or 'cached'} in "
-          f"{time.perf_counter() - t:.2f} s")
+    build_s = time.perf_counter() - t
+    print(f"build: {sorted(reports) or 'cached'} in {build_s:.2f} s "
+          f"(one nvcc per source, all at once)")
     for name, report in reports.items():
         regs = [int(w) for line in report.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:])
@@ -1119,14 +1193,20 @@ def main() -> int:
               f"{max(regs, default=0)} registers a thread, {spills} bytes "
               f"of spill stores")
 
+    attn_build = attention_build(_build.report("swa_attention"))
+    print(f"  swa_attention tensor-core kernel, bf16 D128: {attn_build}")
+
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     print("kernel vs plain:")
     max_err = check_attention(gen)
-    timing = time_attention(gen)
-    print(f"  swa_attention at B{BATCH} H32 KH8 S{PROMPT} D128 bf16 causal: "
-          f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, "
-          f"sdpa {timing['library_ms']:.4f} ms, bound "
-          f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    timing = time_attention(gen, BATCH, PROMPT)
+    long_timing = time_attention(gen, 1, LONG_PROMPT)
+    for (b, s), t_ in (((BATCH, PROMPT), timing), ((1, LONG_PROMPT),
+                                                    long_timing)):
+        print(f"  swa_attention at B{b} H32 KH8 S{s} D128 bf16 causal: "
+              f"{t_['ms']:.4f} ms ({t_['tflops']:.0f} TFLOP/s), plain "
+              f"{t_['plain_ms']:.4f} ms, sdpa {t_['library_ms']:.4f} ms, "
+              f"bound {t_['bound_ms']:.4f} ms ({t_['bound_by']})")
     ov_err, _cases = check_overflow(gen)
     ov_timing = time_overflow(gen)
     print(f"  overflow_check at {_main_grad_elems()} fp32: "
@@ -1169,7 +1249,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:104",
         "launches": main_path["swa_launches"], "max_abs_err": max_err,
-        **timing}, {
+        **timing, "path_launches": main_path["swa_path_launches"],
+        "long_prompt": {"shape": f"B1 H32 KH8 S{LONG_PROMPT} D128 bf16 "
+                                 f"causal", **long_timing},
+        "build": attn_build, "build_s": build_s}, {
         "name": "overflow_check", "route": "cuda",
         "source": "src/repro_torch/csrc/overflow_check.cu",
         "replaces": "src/repro/kernels/overflow_check.py:71",

@@ -5,7 +5,8 @@ interface (no PyTorch headers, so each compiles in seconds), built for
 ``sm_90a`` into ``build/repro_torch_kernels/`` under the repository root
 and named by a hash of its source, so an edited source rebuilds and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source
-at once; :func:`library` builds on first use.  Nothing here runs at import.
+at once; :func:`library` builds on first use; :func:`report` returns the
+ptxas report kept beside each build.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -73,11 +74,19 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        target.with_suffix(".ptxas.txt").write_text(out)
         os.replace(tmp, target)
         reports[name] = out
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def report(name: str) -> str:
+    """nvcc's ptxas report (registers, spills) of ``csrc/{name}.cu``'s
+    current build, saved beside the library when it was built."""
+    build_all([name])
+    return _target(name).with_suffix(".ptxas.txt").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

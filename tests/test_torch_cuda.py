@@ -10,7 +10,10 @@ runs on a machine that has only the port's dependencies:
 
 Tolerances are the reference sweep's (``tests/test_kernels.py``): fp32
 atol 2e-5 (same math, other summation order), bf16 atol 3e-2 (one bf16
-rounding of outputs of magnitude ~1).  fp32 products run without TF32.
+rounding of outputs of magnitude ~1).  fp16 atol 1e-2: the tensor-core
+kernel rounds P and the output to fp16, whose ULP is 8x finer than
+bf16's, and 1e-2 still covers a one-ULP output flip at |o| in [4, 8)
+(3.9e-3) on top of the P rounding.  fp32 products run without TF32.
 """
 
 import numpy as np
@@ -34,7 +37,8 @@ from repro_torch.serve import (OffloadedDecoder, Request, ServingEngine,
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 1e-2}
+TC_DTYPES = [torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -100,6 +104,82 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         swa_attention_cuda(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="CUDA"):
         swa_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+
+
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("h,kh", [(4, 4), (8, 2), (8, 1)])
+def test_tc_kernel_head_dims_and_gqa(cuda, dtype, d, h, kh):
+    """The tensor-core kernel at D 64/128/256 and n_rep 1/4/8, over more
+    than one q tile and k tile (S 320)."""
+    _check(*_qkv(2, h, kh, 320, d, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("window", [0, 64, 128, 500])
+def test_tc_kernel_windows(cuda, dtype, window):
+    _check(*_qkv(1, 8, 2, 700, 128, dtype), dtype, window=window)
+
+
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("s", [77, 200, 511, 513])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_kernel_ragged_lengths_and_non_causal(cuda, dtype, s, causal):
+    _check(*_qkv(1, 4, 1, s, 128, dtype), dtype, causal=causal,
+           window=0 if causal else 96)
+
+
+def test_kernel_paths_and_their_launch_counts(cuda):
+    """bf16/fp16 take the tensor-core kernel, fp32 the SIMT kernel, on the
+    transposed (B, S, H, D) views gqa_prefill passes; each launch counts
+    once in the total and once in its path."""
+    for dtype, path in ((torch.bfloat16, "tensor_core"),
+                        (torch.float16, "tensor_core"),
+                        (torch.float32, "simt")):
+        q, k, v = _qkv(2, 8, 2, 150, 128, dtype)
+        qv, kv_, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in (q, k, v))
+        total = swa_attention_cuda.launches
+        paths = dict(swa_attention_cuda.path_launches)
+        out = swa_attention_cuda(qv, kv_, vv)
+        assert swa_attention_cuda.launches == total + 1
+        want = {p: n + (p == path) for p, n in paths.items()}
+        assert swa_attention_cuda.path_launches == want
+        assert out.stride() == qv.stride()
+        ref = swa_attention_plain(q, k, v)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_tc_kernel_row_is_bitwise_independent_of_batch_and_padding(cuda):
+    """A row's output depends only on its own (batch, head, position) and
+    its live keys: the same at B 1 as at B 4 beside other rows, and the
+    same when causal S is padded past it."""
+    q, k, v = _qkv(4, 8, 2, 384, 128, torch.bfloat16, seed=5)
+    full = swa_attention_cuda(q, k, v)
+    alone = swa_attention_cuda(q[2:3], k[2:3], v[2:3])
+    cut = swa_attention_cuda(*(t[:, :, :300].contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(full[2:3], alone)
+    assert torch.equal(full[:, :, :300], cut)
+
+
+def test_tc_kernel_rejects_what_tma_cannot_take(cuda):
+    """An unaligned base or a seq stride that is not a multiple of 16
+    bytes raises on the tensor-core path (no copy, no fallback); the SIMT
+    path takes the same fp32 views."""
+    n = 2 * 64 * 64
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.randn(n + 1, device=cuda).to(dtype)
+        shifted = flat[1:].view(1, 2, 64, 64)
+        wide = torch.randn(1, 2, 64, 68, device=cuda).to(dtype)[..., :64]
+        for bad, match in ((shifted, "16-byte aligned"),
+                           (wide, "seq stride")):
+            k = v = torch.randn(1, 1, 64, 64, device=cuda).to(dtype)
+            if dtype == torch.float32:
+                _check(bad, k, v, dtype)
+            else:
+                with pytest.raises(ValueError, match=match):
+                    swa_attention_cuda(bad, k, v)
 
 
 @pytest.mark.parametrize("cls", [AlignmentFreeAllocator,
