@@ -34,12 +34,17 @@ Phases (each raises on failure; the script exits non-zero):
    attention;
 6. training: three ``OffloadSession.train_step``s and one ``eval_loss`` of
    qwen3-4b at full width and ``--train-layers`` depth on one seeded batch,
-   ``memascend`` with device-resident checkpoints and full overlap; the
-   overflow kernel's launch count is zeroed just before and read just
-   after; the loss, the landed gradients and one master after step 1 are
-   held against a device-resident plain forward/backward and a plain
-   AdamW on the card, and a second session with an Inf in one weight must
-   skip its step;
+   ``memascend`` as shipped (every block's activation checkpoint in host
+   memory) with full overlap; the overflow kernel's launch count is zeroed
+   just before and read just after; the loss, the landed gradients (every
+   block's ``attn.w_q`` among them) and one master after step 1 are held
+   against a device-resident plain forward/backward and a plain AdamW on
+   the card, and a second session with an Inf in one weight must skip its
+   step; then activation tiers: a third session over the same model and
+   batch on a fresh store with per-block tiers ssd, host, recompute, ...
+   runs two steps (the second overlapping the first's Adam), and its
+   step-1 loss and landed gradients and step-2 loss must equal the host
+   phase's bit for bit;
 7. fused AdamW at its entry point: three ``ops.fused_adam`` steps over
    qwen3-4b's largest tensor (the tied embedding, 388,956,160 fp32), the
    kernel's launch count zeroed just before and read just after, step 1
@@ -482,26 +487,34 @@ def run_adam_path(gen) -> dict:
 
 def time_fused_adam(gen) -> dict:
     """Times at qwen3-4b's largest parameter tensor (the tied embedding,
-    388,956,160 fp32), bf16 w16: the kernel, its plain version and one
+    388,956,160 fp32), bf16 w16: the kernel, its plain version, one
     ``torch._fused_adamw_`` call updating copies of the same four tensors
-    in place (a yardstick only: the port never calls it, and it emits no
-    bf16 copy of the weights)."""
+    in place (a yardstick only: the port never calls it; it moves 28 B an
+    element and emits no bf16 copy of the weights), and that call followed
+    by ``w16.copy_(p)``, the same function as the kernel's."""
     n = _main_grad_elems()
     p, g, m, v = _adam_inputs(gen, n)
     ms = cuda_ms(lambda: fused_adam_cuda(p, g, m, v, 10, **ADAM_KW))
     plain_ms = cuda_ms(lambda: fused_adam_plain(p, g, m, v, 10, **ADAM_KW))
     lp, lm, lv = p.clone(), m.clone(), v.clone()
+    lw16 = torch.empty(n, dtype=torch.bfloat16, device="cuda")
     steps = [torch.tensor(10.0, device="cuda")]
-    library_ms = cuda_ms(lambda: torch._fused_adamw_(
-        [lp], [g], [lm], [lv], [], steps, lr=ADAM_KW["lr"], beta1=0.9,
-        beta2=0.999, weight_decay=ADAM_KW["weight_decay"], eps=1e-8,
-        amsgrad=False, maximize=False))
-    del lp, lm, lv
+
+    def library():
+        torch._fused_adamw_(
+            [lp], [g], [lm], [lv], [], steps, lr=ADAM_KW["lr"], beta1=0.9,
+            beta2=0.999, weight_decay=ADAM_KW["weight_decay"], eps=1e-8,
+            amsgrad=False, maximize=False)
+
+    library_ms = cuda_ms(library)
+    library_w16_ms = cuda_ms(lambda: (library(), lw16.copy_(lp)))
+    del lp, lm, lv, lw16
     # each input read once (16 B), each output written once (12 B of fp32
     # p, m, v and 2 B of bf16 w16); ~40 fp32 operations an element are far
     # below the card's rate
     bytes_ms = 1e3 * 30 * n / HBM_BYTES_PER_S
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_w16_ms": library_w16_ms,
             "bound_ms": bytes_ms, "bound_by": "bytes"}
 
 
@@ -676,17 +689,41 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _train_policy(workdir: str, n_params: int, name: str):
-    """memascend with device-resident checkpoints on a direct-NVMe store
-    sized for master + m + v (fp32) + bf16 compute weights, 14 B/param,
-    plus slack."""
+def _train_policy(workdir: str, n_params: int, name: str, act=None):
+    """memascend as shipped (the host tier of activation checkpoints,
+    unless ``act`` names per-block tiers) on a direct-NVMe store sized for
+    master + m + v (fp32) + bf16 compute weights, 14 B/param, plus
+    slack."""
     capacity = -(-(14 * n_params) // 2) + (512 << 20)
     root = os.path.join(workdir, name)
-    return (OffloadPolicy.preset("memascend")
-            .with_overrides(offload_checkpoints=False)
-            .with_adam(lr=TRAIN_LR, weight_decay=0.01)
-            .with_store(factory=lambda: DirectNVMeEngine(
-                root, n_devices=2, device_capacity=capacity)).build())
+    builder = (OffloadPolicy.preset("memascend")
+               .with_adam(lr=TRAIN_LR, weight_decay=0.01)
+               .with_store(factory=lambda: DirectNVMeEngine(
+                   root, n_devices=2, device_capacity=capacity)))
+    if act is not None:
+        builder = builder.with_activations(act)
+    return builder.build()
+
+
+def _drop_store(workdir: str, name: str) -> None:
+    """The disk holds one training store at a time."""
+    shutil.rmtree(os.path.join(workdir, name), ignore_errors=True)
+
+
+def _act_stages(o0: dict, o1: dict) -> tuple[int, int]:
+    """(gets, hits) of staged checkpoint fetches between two snapshots."""
+    return (o1["act_stage_gets"] - o0["act_stage_gets"],
+            o1["act_stage_hits"] - o0["act_stage_hits"])
+
+
+def _act_step_line(m: dict, stages: tuple[int, int], peak: int) -> str:
+    """The activation stream's share of one train step."""
+    gets, hits = stages
+    return (f"act_save_wait_s {m['act_save_wait_s']:.4f}, act_fetch_wait_s "
+            f"{m['act_fetch_wait_s']:.4f}, act_stage_gets {gets}, "
+            f"act_stage_hits {hits}, act_write_failures "
+            f"{m['act_write_failures']}, activation_checkpoints peak "
+            f"{peak} B")
 
 
 def resident_train_reference(model, tokens, labels, device, watched):
@@ -721,7 +758,11 @@ def adamw_reference(init: np.ndarray, grad: np.ndarray, adam, device):
     return p.detach().cpu().numpy()
 
 
-def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
+def run_train_path(args, workdir: str,
+                   device: str = "cuda") -> tuple[dict, dict]:
+    """The main training phase.  Returns its numbers and what the
+    activation-tiers phase is held to (the model, the batch, the losses
+    and the landed watched gradients)."""
     cfg = dataclasses.replace(get_config("qwen3-4b"),
                               n_layers=args.train_layers)
     free = shutil.disk_usage(workdir).free
@@ -743,7 +784,10 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
         raise RuntimeError(f"not enough disk for the training store: "
                            f"{free} B free")
     check_block, check_keys = model.units[1].name, ("attn.w_q", "ffn.w_down")
+    # every block's backward is held to the resident one through its
+    # attn.w_q; block 0 also through its ffn.w_down
     watched = [("embed", "embed"), *((check_block, k) for k in check_keys),
+               *((u.name, "attn.w_q") for u in model.units[2:-1]),
                ("head", "head")]
     t0 = time.perf_counter()
     policy = _train_policy(workdir, n_params, "train_store")
@@ -753,8 +797,10 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
         _sync(device)
         overflow_flag_cuda_.launches = 0
         host_overflow.check_region.calls = 0
-        steps, walls = [], []
+        steps, walls, act_stage = [], [], []
+        acts = session.tracker.component("activation_checkpoints")
         for step in range(TRAIN_STEPS):
+            o0 = session.overlap_snapshot()
             t1 = time.perf_counter()
             if step == TRAIN_STEPS - 1:
                 # the last step under the profiler: device busy share
@@ -768,9 +814,11 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
                 _sync(device)
             walls.append(time.perf_counter() - t1)
             steps.append(m)
+            act_stage.append(_act_stages(o0, session.overlap_snapshot()))
             print(f"  step {step + 1}: loss {m['loss']:.6f} "
                   f"{walls[-1]:.2f} s, overflowed {m['overflowed']}, "
-                  f"applied {m['applied']}")
+                  f"applied {m['applied']}; "
+                  f"{_act_step_line(m, act_stage[-1], acts.peak_allocated)}")
             if step == 0:
                 # step 1's landed grads (the barrier drained the writer;
                 # step 2's write of a unit waits for step 1's Adam of it)
@@ -796,7 +844,10 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
             pinned_stats.live_allocated
         optim_io = session.optimizer.last_io_bytes
         peak_host = session.tracker.peak_allocated
+        act_peak = acts.peak_allocated
+        act_tiers = session._act_tiers
         adam = policy.adam
+    _drop_store(workdir, "train_store")
 
     # (e) one launch per gradient tensor per step, no host region scan
     if launches != n_tensors * TRAIN_STEPS or host_checks != 0:
@@ -833,6 +884,8 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
             raise AssertionError(f"landed gradient {key} differs from the "
                                  f"resident backward")
     del ref_grads
+    if act_tiers != ("host",) * cfg.n_layers:
+        raise AssertionError(f"the preset ran tiers {act_tiers}, not host")
     # (c) one master after step 1 against torch AdamW on the card
     init = model.units[1].params[check_keys[0]]
     ref_master = adamw_reference(init, landed[(check_block,
@@ -843,7 +896,6 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
           f"AdamW: {adam_rel:.3e} of max (tol {ADAM_RTOL:g})")
     if not adam_rel <= ADAM_RTOL:
         raise AssertionError(f"step-1 master differs from AdamW: {adam_rel}")
-    del landed, model
 
     # (f) an Inf in one weight: the step is flagged and skipped
     skip = check_overflow_skip(args, workdir, device)
@@ -869,7 +921,11 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
         **{f"{k}_per_step": [m[k] for m in steps] for k in (
             "fetch_wait_s", "h2d_wait_s", "gradwrite_drain_s",
             "optim_gate_s", "optim_prefetch_wait_s", "overflow_screen_s",
+            "act_save_wait_s", "act_fetch_wait_s", "act_write_failures",
             "optimizer_io_bytes", "peak_host_bytes")},
+        "act_tiers": act_tiers,
+        "act_stage_gets_hits_per_step": act_stage,
+        "activation_checkpoints_peak_bytes": act_peak,
         "optimizer_io_bytes_last_step": optim_io,
         "peak_host_bytes": peak_host,
         "pinned_requested_bytes": requested,
@@ -888,6 +944,107 @@ def run_train_path(args, workdir: str, device: str = "cuda") -> dict:
         print(f"  {k}: {v}")
     if device == "cuda" and not flat_pinned:
         raise AssertionError("the gradient flat buffer is not page-locked")
+    host_run = {"model": model, "tokens": tokens, "labels": labels,
+                "losses": losses, "landed": landed, "watched": watched}
+    return out, host_run
+
+
+def tiers_for(n_layers: int) -> tuple[str, ...]:
+    """ssd, host, recompute, repeated over the blocks: an ssd fetch staged
+    through the async store read, a host checkpoint fetched early to seed
+    its successor's recompute."""
+    return tuple(("ssd", "host", "recompute")[i % 3]
+                 for i in range(n_layers))
+
+
+def run_act_tiers(workdir: str, host_run: dict,
+                  device: str = "cuda") -> dict:
+    """A second session over the same model and batch on a fresh store,
+    with per-block tiers (:func:`tiers_for`): two steps, the second
+    overlapping the first's Adam stage.  Step-1 loss and landed watched
+    gradients, and the step-2 loss, must equal the host-tier phase's bit
+    for bit; no act store write may fail."""
+    model, watched = host_run["model"], host_run["watched"]
+    tokens, labels = host_run["tokens"], host_run["labels"]
+    tiers = tiers_for(len(model.units) - 2)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    print(f"activation tiers: {tiers}, same model and batch, fresh store")
+    t0 = time.perf_counter()
+    with OffloadSession(model, _train_policy(workdir, n_params, "tiers_store",
+                                             tiers)) as session:
+        setup_s = time.perf_counter() - t0
+        act_bytes = {"written": 0, "read": 0}
+        store = session.store
+        real_write, real_read_async = store.write, store.read_async
+
+        def write(key, data):
+            if key.startswith("__act__/"):
+                act_bytes["written"] += data.nbytes
+            return real_write(key, data)
+
+        def read_async(key, out):
+            if key.startswith("__act__/"):
+                act_bytes["read"] += out.nbytes
+            return real_read_async(key, out)
+
+        store.write, store.read_async = write, read_async
+        acts = session.tracker.component("activation_checkpoints")
+        steps, walls = [], []
+        for step in range(2):
+            o0 = session.overlap_snapshot()
+            t1 = time.perf_counter()
+            m = dict(session.train_step(tokens, labels))
+            _sync(device)
+            walls.append(time.perf_counter() - t1)
+            steps.append(m)
+            line = _act_step_line(
+                m, _act_stages(o0, session.overlap_snapshot()),
+                acts.peak_allocated)
+            print(f"  step {step + 1}: loss {m['loss']:.6f} "
+                  f"{walls[-1]:.2f} s; {line}")
+            if step == 0:
+                # step 1's landed grads; step 2 then runs while step 1's
+                # Adam streams state through the same store
+                landed = {}
+                for unit, key in watched:
+                    off, size, shape = \
+                        session._flat_offsets[f"{unit}/{key}"]
+                    landed[(unit, key)] = session.flat[off:off + size] \
+                        .reshape(shape).copy()
+        snap = session.overlap_snapshot()
+        t2 = time.perf_counter()
+        session.synchronize()
+        adam_tail_s = time.perf_counter() - t2
+        act_peak = acts.peak_allocated
+    _drop_store(workdir, "tiers_store")
+    losses = [m["loss"] for m in steps]
+    host = host_run["losses"]
+    out = {"tiers": tiers, "setup_s": setup_s, "step_s": walls,
+           "adam_tail_s": adam_tail_s, "losses": losses,
+           "host_losses": host[:2],
+           **{f"{k}_per_step": [m[k] for m in steps] for k in (
+               "act_save_wait_s", "act_fetch_wait_s", "act_write_failures",
+               "fetch_wait_s", "optim_gate_s")},
+           "act_stage_gets": snap["act_stage_gets"],
+           "act_stage_hits": snap["act_stage_hits"],
+           "act_store_bytes_written": act_bytes["written"],
+           "act_store_bytes_read": act_bytes["read"],
+           "activation_checkpoints_peak_bytes": act_peak}
+    for k, v in out.items():
+        print(f"  {k}: {v}")
+    if any(m["act_write_failures"] for m in steps):
+        raise AssertionError("an activation store write failed")
+    if losses != host[:2]:
+        raise AssertionError(f"tier losses {losses} differ from the host "
+                             f"tier's {host[:2]}")
+    for key in watched:
+        if not np.array_equal(landed[key].view(np.uint32),
+                              host_run["landed"][key].view(np.uint32)):
+            diff = float(np.abs(landed[key] - host_run["landed"][key]).max())
+            raise AssertionError(f"landed gradient {key} differs from the "
+                                 f"host tier's (max {diff})")
+    print(f"  step-1 loss, {len(watched)} landed gradients and the step-2 "
+          f"loss equal the host tier's bit for bit")
     return out
 
 
@@ -923,6 +1080,7 @@ def check_overflow_skip(args, workdir: str, device: str) -> dict:
     if not (np.array_equal(kept.view(np.uint32), w.view(np.uint32))
             and np.array_equal(embed, model.units[0].params["embed"])):
         raise AssertionError("a skipped step changed the masters")
+    _drop_store(workdir, "skip_store")
     return result
 
 
@@ -1218,7 +1376,8 @@ def main() -> int:
     print(f"  fused_adam at {_main_grad_elems()} fp32, bf16 w16: "
           f"{adam_timing['ms']:.4f} ms, plain {adam_timing['plain_ms']:.4f} "
           f"ms, torch._fused_adamw_ (no w16) "
-          f"{adam_timing['library_ms']:.4f} ms, bound "
+          f"{adam_timing['library_ms']:.4f} ms, + w16.copy_(p) "
+          f"{adam_timing['library_w16_ms']:.4f} ms, bound "
           f"{adam_timing['bound_ms']:.4f} ms (bytes)")
     torch.cuda.empty_cache()
     print(f"kernel phases: {time.perf_counter() - t_start:.1f} s")
@@ -1240,8 +1399,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_train_") as workdir:
         t = time.perf_counter()
-        train = run_train_path(args, workdir)
+        train, host_run = run_train_path(args, workdir)
         phase_s["training"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run_act_tiers(workdir, host_run)
+        del host_run
+        phase_s["activation_tiers"] = time.perf_counter() - t
     print(f"phase seconds: {phase_s}")
 
     kernels = [{

@@ -1,4 +1,4 @@
-"""MemAscend core on torch: the offload substrate and the serving session.
+"""MemAscend core on torch: the offload substrate and the offload session.
 
 * memory accounting      — :mod:`repro_torch.core.memory_tracker`
 * pinned allocators      — :mod:`repro_torch.core.pinned_alloc` (§III-B/§IV-C)
@@ -8,7 +8,8 @@
 * overlap machinery      — :mod:`repro_torch.core.overlap`
 * schedule IR            — :mod:`repro_torch.core.stream_plan`
 * paged KV cache         — :mod:`repro_torch.core.kv_cache`
-* the offload session    — :mod:`repro_torch.core.session` (serve mode)
+* the offload session    — :mod:`repro_torch.core.session` (train + serve)
+* trainer checkpoints    — :mod:`repro_torch.core.checkpoint`
 * policies + presets     — :mod:`repro_torch.core.offload_engine`
 * host bf16 bridge       — :mod:`repro_torch.core.dtypes`
 """
@@ -24,12 +25,14 @@ from .nvme import DirectNVMeEngine, FilesystemEngine, TensorStore, IOStats
 from .optimizer import AdamConfig
 from .swapper import ParameterSwapper, SwapStats
 from .overlap import DeviceSlots, OverlapStats, SerialWorker
-from .stream_plan import (ComputeOp, FetchOp, KVReadOp, KVWriteOp, PlanError,
+from .stream_plan import (ActFetchOp, ActSaveOp, ComputeOp, FetchOp,
+                          GradWriteOp, KVReadOp, KVWriteOp, PlanError,
                           ReleaseOp, StreamPlan, compile_decode_cached,
-                          compile_prefill)
+                          compile_prefill, compile_train, resolve_act_policy)
 from .session import OffloadSession
-from .offload_engine import (OffloadableModel, OffloadUnit, OffloadPolicy,
-                             PolicyBuilder, memascend_bf16_policy,
+from .offload_engine import (OffloadableModel, OffloadedTrainer, OffloadUnit,
+                             OffloadPolicy, PolicyBuilder,
+                             memascend_bf16_policy,
                              memascend_policy, policy_names, register_policy,
                              zero_infinity_policy)
 

@@ -4,8 +4,8 @@ Port of ``src/repro/core/offload_engine.py``: :class:`OffloadUnit`,
 :class:`OffloadableModel` (with its pool census), :class:`OffloadPolicy`
 (a validated, registry-addressable description of which allocator, pool,
 overflow screen and store to run), :class:`PolicyBuilder` and the three
-presets.  The session that executes a policy is
-:class:`repro_torch.core.session.OffloadSession`.
+presets, and the :class:`OffloadedTrainer` shim over the session that
+executes a policy, :class:`repro_torch.core.session.OffloadSession`.
 
 Policies are selected by name through the registry::
 
@@ -16,10 +16,9 @@ pow2 pinned allocator + chained overflow check + per-tensor-file store) vs
 ``memascend`` (adaptive pool + alignment-free allocator + fused check +
 direct NVMe engine); ``memascend-bf16`` adds the half-precision optimizer.
 The activation-checkpoint fields (``offload_checkpoints``, ``act_policy``)
-are validated as in the reference; the session runs device-resident
-checkpoints only (``offload_checkpoints=False``) — the host/ssd/recompute
-tiers come with the activation-offload slice.  MoE expert paging comes with
-the MoE slice.
+pick each block's checkpoint tier as in the reference: ``host`` by default,
+``ssd``, ``recompute``, or ``device`` with ``offload_checkpoints=False``.
+MoE expert paging comes with the MoE slice.
 """
 
 from __future__ import annotations
@@ -35,9 +34,11 @@ import torch
 from .buffer_pool import (AdaptiveBufferPool, BufferPoolBase, FixedBufferPool,
                           PoolCensus, ShapeClass)
 from .nvme import DirectNVMeEngine, FilesystemEngine, TensorStore
+from .memory_tracker import MemoryTracker
 from .optimizer import AdamConfig
 from .pinned_alloc import (AlignmentFreeAllocator, PinnedAllocatorBase,
                            PowerOfTwoCachingAllocator)
+from .session import OffloadSession
 
 
 # ---------------------------------------------------------------------------
@@ -391,3 +392,41 @@ def memascend_policy(root: str, *, bf16_optimizer: bool = False,
 def memascend_bf16_policy(root: str, **kw) -> OffloadPolicy:
     kw.setdefault("bf16_optimizer", True)
     return memascend_policy(root, **kw).replace(name="memascend-bf16")
+
+
+# ---------------------------------------------------------------------------
+# Back-compat shim over OffloadSession
+# ---------------------------------------------------------------------------
+
+class OffloadedTrainer:
+    """Thin shim: the seed trainer API, delegating to an OffloadSession.
+
+    Prefer the session directly (context management, StreamPlans, lookahead
+    control, serve mode); this class keeps the historical surface —
+    ``train_step`` / ``eval_loss`` / ``master_param`` / ``close`` plus the
+    ``store``/``pool``/``swapper``/``optimizer``/``scaler``/``flat``
+    attributes — for existing callers and checkpoints.
+    """
+
+    def __init__(self, model: OffloadableModel, policy: OffloadPolicy,
+                 *, tracker: MemoryTracker | None = None) -> None:
+        self.session = OffloadSession(model, policy, tracker=tracker)
+
+    def train_step(self, tokens: np.ndarray, labels: np.ndarray) -> dict:
+        return self.session.train_step(tokens, labels)
+
+    def eval_loss(self, tokens: np.ndarray, labels: np.ndarray) -> float:
+        return self.session.eval_loss(tokens, labels)
+
+    def master_param(self, unit_name: str, key: str) -> np.ndarray:
+        return self.session.master_param(unit_name, key)
+
+    def close(self) -> None:
+        self.session.close()
+
+    def __getattr__(self, name: str):
+        # model/policy/tracker/store/pool/swapper/optimizer/scaler/flat/
+        # total_params/metrics/synchronize/... all live on the session.
+        if name == "session":   # session construction itself failed
+            raise AttributeError(name)
+        return getattr(self.session, name)

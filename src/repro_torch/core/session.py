@@ -28,8 +28,8 @@ caching allocator from handing the copy's memory to the side stream while
 compute still reads it.
 
 Training (``train_step``, the default ``mode="train"``) runs the
-``compile_train`` plan: the streamed forward (block inputs kept on the
-device as checkpoints), the head loss and its gradients, the reverse
+``compile_train`` plan: the streamed forward (each block's input saved as
+its activation checkpoint), the head loss and its gradients, the reverse
 backward (each block recomputed from its checkpoint under autograd), the
 embedding backward, the overflow screen, the loss scaler and the host Adam
 over SSD-resident state (:class:`~repro_torch.core.optimizer.OffloadedAdam`).
@@ -38,6 +38,21 @@ Under ``overlap="full"`` the gradient write-back runs on the
 reads on ``offload-optim-prefetch``), so step *k*'s Adam overlaps step
 *k+1*'s forward; per-unit readiness futures gate the next fetch and the
 next gradient write of each unit.
+
+Activation checkpoints (``policy.act_policy``; see
+:func:`~repro_torch.core.stream_plan.resolve_act_policy`) leave the device
+after each block's forward: a block's ActSaveOp copies its input to host
+memory (``host``) and onward to the store (``ssd``) on the gradient-writer
+thread under full overlap, inline otherwise; ``recompute`` blocks save
+nothing and re-run the previous block's forward in the backward; ``device``
+blocks (``offload_checkpoints=False``) keep theirs on the card.  The
+backward's ActFetchOps split into issue/wait halves riding the staging
+worker under a depth-2 ``ACT_CLASS`` device slot, so block *i−1*'s
+checkpoint streams back under block *i*'s ``block_bwd``.  On CUDA the
+checkpoint's D2H runs on the writer's side stream after an event recorded
+on the compute stream when the checkpoint was bound, into page-locked
+memory, and is synchronised before the device tensor is dropped; it comes
+back in its own dtype, bit for bit.
 
 Gradient write-back (:meth:`OffloadSession._write_grads`).  The executor
 casts each unit's device gradients to fp32 on the compute stream and
@@ -61,8 +76,7 @@ lengths; and the speculative ``verify_step`` / ``verify_step_slots``,
 which step a (batch, K) draft window in one weight pass and return logits
 bitwise equal to K chained steps (the window's positions run at the
 step's own shapes: ``block_verify`` in the adapter, and the head here one
-position at a time).  Activation-checkpoint offload (host/ssd/recompute
-tiers) comes with the activation-offload slice.
+position at a time).
 """
 
 from __future__ import annotations
@@ -86,18 +100,15 @@ from .loss_scale import DynamicLossScaler
 from .memory_tracker import MemoryTracker
 from .optimizer import OffloadedAdam
 from .overflow import check_region, flat_overflow_check
-from .overlap import DeviceSlots, OverlapStats, SerialWorker, done_future
-from .stream_plan import (PLAN_COMPILERS, ComputeOp, FetchOp, GradWriteOp,
-                          KVReadOp, KVWriteOp, OptimStepOp, OverflowCheckOp,
-                          ReleaseOp, StreamPlan, compile_train,
-                          resolve_act_policy)
+from .overlap import (ACT_CLASS, DeviceSlots, OverlapStats, SerialWorker,
+                      done_future)
+from .stream_plan import (PLAN_COMPILERS, ActFetchOp, ActSaveOp, ComputeOp,
+                          FetchOp, GradWriteOp, KVReadOp, KVWriteOp,
+                          OptimStepOp, OverflowCheckOp, ReleaseOp, StreamPlan,
+                          compile_train, resolve_act_policy)
 from .swapper import ParameterSwapper
 
 COMPUTE_SUFFIX = OffloadedAdam.COMPUTE   # store key suffix of compute weights
-ACT_LATER = ("activation-checkpoint offload (host/ssd/recompute tiers) is "
-             "not ported yet: it comes with the activation-offload slice; "
-             "build the policy with offload_checkpoints=False to keep every "
-             "checkpoint on the device")
 
 
 def verify_bucket(n: int) -> int:
@@ -113,6 +124,39 @@ def verify_bucket(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+class _ActCkpt:
+    """One block's activation checkpoint, tracked through its tiers.
+
+    ``tier`` walks ``device`` (just saved: ``value`` is the device tensor)
+    → ``host`` (ActSaveOp copied it out: ``value`` is a host ndarray,
+    ``handle`` its tracker allocation) → ``ssd`` (the store holds the
+    bytes; only ``shape``/``np_dtype`` remain) → ``ready`` (ActFetchOp
+    staged it back: ``value`` is a device tensor again, ``slot`` set if it
+    holds an ACT_CLASS device slot).  ``dtype`` is the tensor's own dtype,
+    which the H2D back restores (bf16 travels as ``uint16`` bits).
+    ``ready_event`` (CUDA) was recorded on the compute stream when the
+    checkpoint was bound: the D2H waits on it.  ``fut`` is the in-flight
+    ActSaveOp future while the gradient-writer thread runs the offload;
+    the executor only reads the tier fields after ``fut`` resolves (the
+    Future is the happens-before edge), or after an inline save on its own
+    thread."""
+
+    __slots__ = ("unit", "tier", "value", "handle", "shape", "np_dtype",
+                 "dtype", "ready_event", "fut", "slot")
+
+    def __init__(self, unit: str, value: torch.Tensor, ready_event=None):
+        self.unit = unit
+        self.tier = "device"
+        self.value = value
+        self.handle = None      # tracker handle while a host copy is live
+        self.shape = None       # ssd tier: host array shape
+        self.np_dtype = None    # ssd tier: host array dtype
+        self.dtype = value.dtype
+        self.ready_event = ready_event
+        self.fut = None         # pending ActSaveOp (writer-thread) future
+        self.slot = False       # value holds an ACT_CLASS device slot
+
+
 class _ExecState:
     """Per-plan-run bindings and carried activations/cotangents."""
 
@@ -121,7 +165,8 @@ class _ExecState:
                  "checkpoints", "overflowed", "apply", "optim_begun",
                  "kv", "kv_live", "kv_append", "kv_stage", "kv_slots",
                  "kv_time", "cache_len", "last_pos", "kv_write_slots",
-                 "stage_seq")
+                 "stage_seq", "act_order", "act_next", "act_stage",
+                 "act_reads", "act_slots_out")
 
     def __init__(self, tokens: torch.Tensor,
                  labels: torch.Tensor | None = None, scale: float = 1.0):
@@ -133,7 +178,7 @@ class _ExecState:
         self.live_slots: dict[str, tuple] = {}  # unit -> device-slot tokens
         self.h2d: dict[str, deque] = {}     # unit -> staged-fetch futures
         self.grads: dict[str, dict] = {}    # unit -> device grads
-        self.checkpoints: dict[str, torch.Tensor] = {}  # unit -> block input
+        self.checkpoints: dict[str, _ActCkpt] = {}  # unit -> block input
         self.overflowed: bool | None = None  # set by OverflowCheckOp
         self.apply: bool | None = None       # set by OverflowCheckOp
         self.optim_begun = False             # begin_step() sequenced once
@@ -150,9 +195,19 @@ class _ExecState:
         #                           or (B,) per row for joiner prefills)
         self.kv_write_slots = None  # prefill-scatter target slots
         # (kind, unit) per staging-worker submission, in FIFO order —
-        # "w" weight stages and "kv" window stages interleave on ONE
-        # worker, so the abort path must drain them in this exact order
+        # "w" weight stages, "kv" window stages and "act" checkpoint
+        # stages interleave on ONE worker, so the abort path must drain
+        # them in this exact order
         self.stage_seq: list[tuple[str, str]] = []
+        # activation-checkpoint streaming (train plans with host/ssd tiers)
+        self.act_order: list[str] = []   # plan's ActFetchOp units, in order
+        self.act_next = 0                # first act fetch not yet issued
+        self.act_stage: dict[str, Future] = {}  # unit -> staged-ckpt future
+        self.act_reads: dict[str, tuple] = {}   # unit -> (fut, buf, handle)
+        #                                         sync-mode SSD act reads
+        self.act_slots_out = 0   # ACT_CLASS submissions not yet consumed —
+        #                          capped at the slot depth so the staging
+        #                          worker's acquire can never block
 
 
 class OffloadSession:
@@ -229,8 +284,7 @@ class OffloadSession:
 
         # Per-block activation-checkpoint tiers (train mode), resolved once
         # so a bad act_policy fails here, not at the first train_step.
-        # offload_checkpoints=False keeps every checkpoint on the device —
-        # the only tier this port runs so far.
+        # offload_checkpoints=False keeps every checkpoint on the device.
         block_names = [u.name for u in model.units[1:-1]]
         self._act_tiers: tuple[str, ...] = ()
         if mode == "train" and block_names:
@@ -238,10 +292,6 @@ class OffloadSession:
                 block_names,
                 policy.act_policy if policy.offload_checkpoints
                 else "device")
-            offloaded = sorted({t for t in self._act_tiers if t != "device"})
-            if offloaded:
-                raise NotImplementedError(f"act tier(s) {offloaded}: "
-                                          f"{ACT_LATER}")
 
         # Full-overlap machinery (policy.overlap; see module docstring and
         # repro_torch.core.overlap).  Created before the store writes below
@@ -291,6 +341,10 @@ class OffloadSession:
             if decode is not None:
                 # staged KV windows double-buffer too
                 depths[KV_CLASS] = 2
+            if any(t in ("host", "ssd") for t in self._act_tiers):
+                # staged activation checkpoints double-buffer the same way:
+                # one consumed by the current block_bwd, one being staged
+                depths[ACT_CLASS] = 2
             self._device_slots = DeviceSlots(depths)
             # latch=False: every staging future is awaited by the executor
             # (the wait half, or the abort path), which delivers failures.
@@ -473,6 +527,14 @@ class OffloadSession:
         return (sloss.detach() / scale, dict(zip(keys, grads[:-1],
                                                  strict=True)), grads[-1])
 
+    def _block_forward(self, params, x):
+        """A block's forward as the training plan runs it — the ``block``
+        op and ``block_recompute`` alike: no autograd graph (its output is
+        a checkpoint or the next block's input), on the compute stream, so
+        a recomputed checkpoint is bitwise the forward's."""
+        with torch.no_grad():
+            return self.model.block_apply(params, x)
+
     def _block_bwd(self, params, x, dy):
         """Recompute the block forward from its checkpoint under autograd
         and pull the cotangent back: (parameter grads, dx)."""
@@ -511,15 +573,18 @@ class OffloadSession:
                    for _key, skey, _cd, _shape in
                    self._param_keys(unit_name))
 
-    def _h2d_copy(self, host_view: np.ndarray) -> torch.Tensor:  # thread: executor, h2d-worker
-        """Device copy of a host view (a pool slot or a gathered window).
+    def _h2d_copy(self, host_view: np.ndarray,  # thread: executor, h2d-worker
+                  dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Device copy of a host view (a pool slot, a gathered window or an
+        activation checkpoint) holding ``dtype`` data (the compute dtype
+        unless given; a checkpoint comes back in its own).
 
         When this returns, the copy has landed: the caller may release the
         slot and the next SSD read may overwrite it.  On CUDA the copy is
         a DMA on the side stream, synchronised here on the calling thread
         (the staging worker, or in sync mode the executor that was going to
         wait anyway), never on an overlapped compute."""
-        src = to_torch(host_view, self.compute_dtype)
+        src = to_torch(host_view, dtype or self.compute_dtype)
         if self.device.type != "cuda":
             return src.clone()
         with torch.cuda.stream(self._copy_stream):
@@ -665,6 +730,305 @@ class OffloadSession:
             raise
         self._ostats.optim_gate_seconds += time.perf_counter() - t0
 
+    # -- activation-checkpoint streaming -------------------------------------
+    #
+    # Lifecycle (mirrors the weight stream's split issue/wait halves):
+    #
+    #   save    ComputeOp(save_input) binds the device tensor as an _ActCkpt
+    #           (recording an event on the compute stream); ActSaveOp runs
+    #           _act_offload on the gradient-writer thread under full
+    #           overlap (the D2H + SSD write hide under the next block's
+    #           forward) and inline otherwise,
+    #   fetch   _act_issue_ahead (called inside the FetchOp lookahead
+    #           window, at each ActFetchOp and after each ReleaseOp) starts
+    #           the SSD read + H2D staging for upcoming act fetches, bounded
+    #           by the ACT_CLASS device-slot budget; ActFetchOp's
+    #           _act_fetch only waits,
+    #   consume block_bwd takes the device tensor and returns the slot.
+    #
+    # Deadlock-freedom of the staged path: the executor never submits an
+    # act stage while act_slots_out >= the ACT_CLASS depth, so the staging
+    # worker's ACT acquire is always immediately satisfiable — it can
+    # never wedge the shared FIFO worker behind an unreleasable slot (a
+    # checkpoint fetched early to seed a recompute holds its slot until
+    # its own block_bwd).
+
+    def _act_key(self, unit: str, nbytes: int) -> str:
+        # nbytes in the key: DirectNVMeEngine reuses an existing key's
+        # extents and rejects size changes, so a seq-length change must
+        # land under a fresh key (keys are overwritten per step, never
+        # deleted — the store reuses their extents)
+        return f"__act__/{unit}/{nbytes}"
+
+    def _bind_checkpoint(self, unit: str, h: torch.Tensor) -> _ActCkpt:  # thread: executor
+        """A block input saved as its checkpoint; on CUDA with an event
+        recorded on the compute stream after the op that produced it."""
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(self._compute_stream)
+        return _ActCkpt(unit, h, ready)
+
+    def _exec_act_save(self, op: ActSaveOp, state: _ExecState) -> None:  # thread: executor
+        """ActSaveOp: offload the unit's just-saved checkpoint — on the
+        gradient-writer thread (full overlap; idle during the forward
+        pass) or inline."""
+        rec = state.checkpoints[op.unit]
+        if self._grad_writer is not None:
+            rec.fut = self._grad_writer.submit(
+                functools.partial(self._act_offload, rec, op.tier))
+        else:
+            t0 = time.perf_counter()
+            self._act_offload(rec, op.tier)
+            self._ostats.act_save_wait_seconds += time.perf_counter() - t0
+
+    def _act_d2h(self, rec: _ActCkpt) -> np.ndarray:  # thread: executor, writer
+        """Host copy of a device-tier checkpoint (bf16 as ``uint16`` bits).
+
+        On CUDA the copy is a DMA into page-locked memory on the writer's
+        side stream, which first waits on the checkpoint's ready event; it
+        is synchronised here, so once this returns the device tensor may be
+        dropped (``record_stream`` keeps the caching allocator from reusing
+        its memory while the DMA reads it)."""
+        value = rec.value
+        if self.device.type != "cuda":
+            return to_host(value).copy()
+        host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+        done = torch.cuda.Event()
+        with torch.cuda.stream(self._d2h_stream):
+            self._d2h_stream.wait_event(rec.ready_event)
+            host.copy_(value, non_blocking=True)
+            value.record_stream(self._d2h_stream)
+            done.record(self._d2h_stream)
+        done.synchronize()
+        return to_host(host)
+
+    def _act_offload(self, rec: _ActCkpt, tier: str) -> None:  # thread: executor, writer
+        """D2H the checkpoint and, for the ssd tier, write it onward to
+        the store and free the host copy.  A failed SSD write degrades
+        gracefully: the host copy stays live (tracked) and the checkpoint
+        serves from the host tier — no data loss, no raised step."""
+        t0 = time.perf_counter()
+        try:
+            host = self._act_d2h(rec)
+            handle = self.tracker.alloc("activation_checkpoints",
+                                        host.nbytes, tag="block_input")
+            try:
+                if tier == "ssd":
+                    try:
+                        self.store.write(self._act_key(rec.unit, host.nbytes),
+                                         host)
+                    except Exception:
+                        self._ostats.bump("act_write_failures")
+                    else:
+                        self.tracker.free(handle)
+                        rec.shape, rec.np_dtype = host.shape, host.dtype
+                        rec.value, rec.handle = None, None
+                        rec.tier = "ssd"
+                        return
+                rec.value, rec.handle = host, handle
+                rec.tier = "host"
+            except BaseException:
+                # rec stays device-tier; the abort path discards it safely
+                self.tracker.free(handle)
+                raise
+        finally:
+            self._ostats.add_worker_seconds("act_save_seconds",
+                                            time.perf_counter() - t0)
+
+    def _act_issue_ahead(self, state: _ExecState) -> None:  # thread: executor
+        """Issue half of upcoming ActFetchOps: start SSD reads + H2D
+        staging for the next offloaded checkpoints, in plan order, so
+        block *i−1*'s checkpoint streams back under block *i*'s
+        ``block_bwd``.  Stops at a checkpoint whose save is still in
+        flight (or failed — the failure surfaces at its ActFetchOp gate)
+        and at the ACT slot / lookahead budget."""
+        order = state.act_order
+        while state.act_next < len(order):
+            unit = order[state.act_next]
+            rec = state.checkpoints.get(unit)
+            if rec is None:
+                break              # forward has not saved this one yet
+            fut = rec.fut
+            if fut is not None:
+                if not fut.done():
+                    break          # save still in flight on the writer
+                if fut.exception() is not None:
+                    break          # delivered at the ActFetchOp gate
+            if rec.tier not in ("host", "ssd") or unit in state.act_stage \
+                    or unit in state.act_reads:
+                state.act_next += 1
+                continue
+            if self._h2d is not None:
+                if state.act_slots_out >= 2:
+                    break          # ACT_CLASS budget: acquire never blocks
+                self._issue_act_stage(unit, rec, state)
+            elif rec.tier == "ssd":
+                if len(state.act_reads) >= self.lookahead:
+                    break
+                self._issue_act_read(unit, rec, state)
+            # sync-mode host tier: nothing to issue — the H2D is the wait
+            state.act_next += 1
+
+    def _act_read_buffer(self, rec: _ActCkpt) -> tuple[np.ndarray, int]:  # thread: executor
+        """A tracked host buffer for one ssd-tier checkpoint's read."""
+        buf = np.empty(rec.shape, rec.np_dtype)
+        return buf, self.tracker.alloc("activation_checkpoints", buf.nbytes,
+                                       tag="act_fetch_staging")
+
+    def _issue_act_stage(self, unit: str, rec: _ActCkpt,  # thread: executor
+                         state: _ExecState) -> None:
+        """Queue one checkpoint's H2D staging (and, for ssd, its async
+        store read) on the staging worker, behind the backward pass's
+        weight stages."""
+        if rec.tier == "ssd":
+            buf, handle = self._act_read_buffer(rec)
+            try:
+                read_fut = self.store.read_async(
+                    self._act_key(unit, buf.nbytes), buf)
+            except BaseException:
+                self.tracker.free(handle)
+                raise
+            task = functools.partial(self._act_stage_ssd, read_fut, buf,
+                                     handle, rec.dtype)
+        else:
+            task = functools.partial(self._act_stage_host, rec)
+        state.act_stage[unit] = self._h2d.submit(task)
+        state.stage_seq.append(("act", unit))
+        state.act_slots_out += 1
+
+    def _act_stage_ssd(self, read_fut: Future, buf: np.ndarray,  # thread: h2d-worker
+                       handle: int, dtype: torch.dtype) -> torch.Tensor:
+        """Staging-worker body: wait the SSD read, H2D under a counted ACT
+        device slot, free the staging buffer.  On failure the slot is
+        returned here; the read buffer's tracker handle is always freed
+        (the bytes live on device or nowhere)."""
+        self._device_slots.acquire(ACT_CLASS)
+        try:
+            try:
+                read_fut.result()
+                return self._h2d_copy(buf, dtype)
+            finally:
+                self.tracker.free(handle)
+        except BaseException:
+            self._device_slots.release_all([ACT_CLASS])
+            raise
+
+    def _act_stage_host(self, rec: _ActCkpt) -> torch.Tensor:  # thread: h2d-worker
+        """Staging-worker body for a host-tier checkpoint: H2D under a
+        counted ACT device slot (the host copy's tracker handle is freed
+        by the executor when the staged tensor is consumed)."""
+        self._device_slots.acquire(ACT_CLASS)
+        try:
+            return self._h2d_copy(rec.value, rec.dtype)
+        except BaseException:
+            self._device_slots.release_all([ACT_CLASS])
+            raise
+
+    def _issue_act_read(self, unit: str, rec: _ActCkpt,  # thread: executor
+                        state: _ExecState) -> None:
+        """Sync-mode issue half: async SSD read into a tracked host
+        buffer; the ActFetchOp waits it out and H2Ds inline."""
+        buf, handle = self._act_read_buffer(rec)
+        try:
+            fut = self.store.read_async(self._act_key(unit, buf.nbytes), buf)
+        except BaseException:
+            self.tracker.free(handle)
+            raise
+        state.act_reads[unit] = (fut, buf, handle)
+
+    def _act_fetch(self, op: ActFetchOp, state: _ExecState) -> None:  # thread: executor
+        """Wait half of the split ActFetchOp: surface a failed save
+        exactly once, top up the issue window, then make the checkpoint
+        device-resident from whichever tier it landed in."""
+        unit = op.unit
+        rec = state.checkpoints[unit]
+        if rec.fut is not None:
+            t0 = time.perf_counter()
+            try:
+                rec.fut.result()
+            except BaseException as e:
+                if self._grad_writer is not None:
+                    self._grad_writer.consume_error(e)  # delivered here
+                raise
+            finally:
+                rec.fut = None
+                self._ostats.act_save_wait_seconds += \
+                    time.perf_counter() - t0
+        self._act_issue_ahead(state)
+        t0 = time.perf_counter()
+        staged = state.act_stage.pop(unit, None)
+        if staged is not None:
+            hit = staged.done()
+            try:
+                value = staged.result()
+            finally:
+                # a failed stage must not leak the host copy's handle
+                if rec.handle is not None:
+                    self.tracker.free(rec.handle)
+                    rec.handle = None
+            self._ostats.act_stage_gets += 1
+            self._ostats.act_stage_hits += int(hit)
+            rec.value, rec.tier, rec.slot = value, "ready", True
+        elif unit in state.act_reads:
+            read_fut, buf, handle = state.act_reads.pop(unit)
+            try:
+                read_fut.result()
+                value = self._h2d_copy(buf, rec.dtype)
+            finally:
+                self.tracker.free(handle)
+            rec.value, rec.tier = value, "ready"
+        elif rec.tier == "host":
+            # inline H2D; the handle is freed even if the copy raises
+            try:
+                value = self._h2d_copy(rec.value, rec.dtype)
+            finally:
+                self.tracker.free(rec.handle)
+                rec.handle = None
+            rec.value, rec.tier = value, "ready"
+        elif rec.tier == "ssd":
+            # cold path (defensive): read + H2D inline
+            buf, handle = self._act_read_buffer(rec)
+            try:
+                self.store.read(self._act_key(unit, buf.nbytes), buf)
+                value = self._h2d_copy(buf, rec.dtype)
+            finally:
+                self.tracker.free(handle)
+            rec.value, rec.tier = value, "ready"
+        self._ostats.act_fetch_wait_seconds += time.perf_counter() - t0
+
+    def _consume_checkpoint(self, unit: str, state: _ExecState) -> torch.Tensor:  # thread: executor
+        """block_bwd's checkpoint take: pop the record, return its device
+        tensor, and give back its ACT device slot."""
+        rec = state.checkpoints.pop(unit)
+        if rec.slot:
+            self._device_slots.release_all([ACT_CLASS])
+            state.act_slots_out -= 1
+            rec.slot = False
+        if rec.tier in ("device", "ready"):
+            return rec.value
+        # validated at plan build (block_bwd only consumes saved/ready);
+        # defensive
+        raise RuntimeError(f"checkpoint for {unit!r} is {rec.tier!r}, not "
+                           f"device-resident")
+
+    def _discard_checkpoint(self, rec: _ActCkpt,  # thread: executor
+                            state: _ExecState) -> None:
+        """Abort-path release of one checkpoint record: wait out an
+        in-flight save (the writer thread may still be mutating the
+        record), return its device slot, free its host handle."""
+        if rec.fut is not None:
+            with contextlib.suppress(BaseException):
+                rec.fut.result()
+            rec.fut = None
+        if rec.slot:
+            self._device_slots.release_all([ACT_CLASS])
+            state.act_slots_out -= 1
+            rec.slot = False
+        if rec.handle is not None:
+            self.tracker.free(rec.handle)
+            rec.handle = None
+
     # -- plan execution ------------------------------------------------------
 
     def execute(self, plan: StreamPlan, state: _ExecState) -> _ExecState:  # thread: executor
@@ -687,9 +1051,18 @@ class OffloadSession:
         kv_read_units = (frozenset(
             op.unit for op in plan.ops if isinstance(op, KVReadOp))
             if state.kv is not None else frozenset())
+        state.act_order = [op.unit for op in plan.ops
+                           if isinstance(op, ActFetchOp)]
+        state.act_next = 0
         try:
             for op in plan.ops:
                 if isinstance(op, FetchOp):
+                    if state.act_order:
+                        # checkpoint fetches ride the same window — issued
+                        # BEFORE this dispatch's weight stages so they are
+                        # not queued behind a weight stage that is parked
+                        # on a device slot the backward has yet to release
+                        self._act_issue_ahead(state)
                     limit = min(fetch_pos + self.lookahead, len(fetch_order))
                     while next_prefetch < limit:
                         unit = fetch_order[next_prefetch]
@@ -732,6 +1105,10 @@ class OffloadSession:
                     self._read_kv(op.unit, state)
                 elif isinstance(op, KVWriteOp):
                     self._write_kv(op, state)
+                elif isinstance(op, ActSaveOp):
+                    self._exec_act_save(op, state)
+                elif isinstance(op, ActFetchOp):
+                    self._act_fetch(op, state)
                 elif isinstance(op, GradWriteOp):
                     self._dispatch_grad_write(op.unit, state)
                 elif isinstance(op, OverflowCheckOp):
@@ -746,7 +1123,11 @@ class OffloadSession:
                     kv_tokens = state.kv_slots.pop(op.unit, None)
                     if kv_tokens:
                         self._device_slots.release_all(kv_tokens)
-                else:   # activation-offload and expert ops: later slices
+                    if state.act_order:
+                        # a block_bwd just gave an ACT slot back — top the
+                        # issue window up ahead of the next weight stages
+                        self._act_issue_ahead(state)
+                else:   # expert-paging ops come with the MoE slice
                     raise NotImplementedError(f"plan op {op!r} is not "
                                               f"ported yet")
         except BaseException:
@@ -758,9 +1139,11 @@ class OffloadSession:
         """Error path: nothing may leak.  Device-slot tokens are returned
         (resident units first, so a staging worker blocked on a slot can
         finish), staged fetches waited out in submission order, the
-        gradient writer drained, and outstanding reads drained back to the
-        pool.  (KV pool slots belong to the SpillableKVCache, whose owner
-        — generate()'s finally — closes it.)"""
+        gradient writer drained (resolving in-flight activation saves),
+        host-held checkpoints and staged act reads freed, and outstanding
+        reads drained back to the pool.  (KV pool slots belong to the
+        SpillableKVCache, whose owner — generate()'s finally — closes
+        it.)"""
         for tokens in state.live_slots.values():
             self._device_slots.release_all(tokens)
         state.live_slots.clear()
@@ -768,12 +1151,14 @@ class OffloadSession:
             self._device_slots.release_all(tokens)
         state.kv_slots.clear()
         state.live.clear()
-        # Staged fetches and KV windows must settle before the swapper
-        # drain: a queued staging job that ran *after* the drain would
-        # re-issue its reads and leak device slots.  Both kinds interleave
-        # on ONE FIFO worker, so waits follow stage_seq's order — waiting a
-        # later weight future while an earlier KV task still blocks on a kv
-        # device slot would deadlock.
+        # Staged fetches, KV windows and act checkpoints must settle before
+        # the swapper drain: a queued staging job that ran *after* the
+        # drain would re-issue its reads and leak device slots.  All three
+        # kinds interleave on ONE FIFO worker, so waits follow stage_seq's
+        # order — waiting a later weight future while an earlier KV task
+        # still blocks on a kv device slot would deadlock.  (Act stages
+        # never block on their slot: the executor's act_slots_out cap
+        # guarantees a free ACT slot per submission.)
         for kind, unit in state.stage_seq:
             if kind == "w":
                 pending = state.h2d.get(unit)
@@ -785,26 +1170,39 @@ class OffloadSession:
                 except BaseException:
                     continue      # the worker released its own claims
                 self._device_slots.release_all(tokens)
-            else:   # "kv"
-                fut = state.kv_stage.pop(unit, None)
+            else:   # "kv" / "act": one device slot of the kind's class
+                stage, cls = ((state.kv_stage, KV_CLASS) if kind == "kv"
+                              else (state.act_stage, ACT_CLASS))
+                fut = stage.pop(unit, None)
                 if fut is None:
                     continue
                 try:
                     fut.result()
                 except BaseException:
                     continue      # the worker released its own slot
-                self._device_slots.release_all([KV_CLASS])
+                self._device_slots.release_all([cls])
         state.stage_seq.clear()
         state.h2d.clear()
         state.kv_live.clear()
         state.kv_append.clear()
+        state.act_stage.clear()
         state.grads.clear()
-        state.checkpoints.clear()
         if self._grad_writer is not None:
             # the original executor error propagates; queued write-backs
-            # finish (their DMAs target the flat buffer) before return
+            # finish (their DMAs target the flat buffer) before return,
+            # and in-flight activation saves resolve, so the checkpoint
+            # discard below sees settled records
             with contextlib.suppress(BaseException):
                 self._grad_writer.drain()
+        for rec in state.checkpoints.values():
+            self._discard_checkpoint(rec, state)
+        state.checkpoints.clear()
+        for read_fut, _buf, handle in state.act_reads.values():
+            with contextlib.suppress(BaseException):
+                read_fut.result()   # the async pread targets the buffer
+            self.tracker.free(handle)
+        state.act_reads.clear()
+        state.act_slots_out = 0
         self.swapper.drain()
 
     def _compute(self, op: ComputeOp, state: _ExecState) -> None:
@@ -814,10 +1212,12 @@ class OffloadSession:
             state.h = model.embed_apply(params, state.tokens)
         elif op.kind == "block":
             if op.save_input:
-                # device-tier checkpoint: the block input stays on the
-                # device until this block's backward recomputes from it
-                state.checkpoints[op.unit] = state.h
-            state.h = model.block_apply(params, state.h)
+                # bind the device tensor only — the D2H (and SSD write)
+                # happen at the unit's ActSaveOp, off the executor thread
+                # under full overlap; device-tier plans keep it as it is
+                state.checkpoints[op.unit] = self._bind_checkpoint(
+                    op.unit, state.h)
+            state.h = self._block_forward(params, state.h)
         elif op.kind == "head_loss_grad":
             state.loss, head_grads, state.dh = self._head_loss_and_grads(
                 params, state.h, state.labels, state.scale)
@@ -825,9 +1225,20 @@ class OffloadSession:
         elif op.kind == "head_loss":
             state.loss = model.head_loss(params, state.h, state.labels)
         elif op.kind == "block_bwd":
-            x = state.checkpoints.pop(op.unit)
+            x = self._consume_checkpoint(op.unit, state)
             state.grads[op.unit], state.dh = self._block_bwd(
                 params, x, state.dh)
+        elif op.kind == "block_recompute":
+            # re-run this block's forward from its own (peeked, not
+            # consumed — its block_bwd still needs it) checkpoint to
+            # re-derive the successor's dropped checkpoint, exactly as
+            # the forward's block op computed it
+            src = state.checkpoints[op.unit]
+            if src.tier not in ("device", "ready"):  # validated; defensive
+                raise RuntimeError(f"recompute source for {op.unit!r} is "
+                                   f"{src.tier!r}, not device-resident")
+            state.checkpoints[op.recompute_for] = self._bind_checkpoint(
+                op.recompute_for, self._block_forward(params, src.value))
         elif op.kind == "embed_bwd":
             state.grads[op.unit] = self._embed_bwd(params, state.tokens,
                                                    state.dh)
@@ -866,7 +1277,7 @@ class OffloadSession:
                 params, state.h, k_dev, v_dev, state.cache_len,
                 chunk=self.decode_spec.bucket)
             state.kv_append[op.unit] = (k, v)
-        else:  # recompute/MoE kinds come with later slices
+        else:  # expert-paged MoE kinds come with the MoE slice
             raise NotImplementedError(f"compute kind {op.kind!r} is not "
                                       f"ported yet")
 

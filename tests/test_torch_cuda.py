@@ -16,6 +16,8 @@ bf16's, and 1e-2 still covers a one-ULP output flip at |o| in [4, 8)
 (3.9e-3) on top of the P rounding.  fp32 products run without TF32.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -303,22 +305,35 @@ TRAIN_CFG = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
                         qk_norm=True)
 
 
-def _train(device, root, overlap="full", steps=3):
-    """fp32 train steps of the tiny model; returns (losses, session
-    facts)."""
-    model = make_offloadable_lm(TRAIN_CFG, 0, torch.float32, device=device)
-    policy = (OffloadPolicy.preset("memascend").with_store(root)
-              .with_adam(compute_dtype="float32", lr=1e-3)
-              .with_overlap(overlap)
-              .with_overrides(offload_checkpoints=False).build())
+def _train(device, root, overlap="full", steps=3, act=None, layers=2):
+    """fp32 train steps of the tiny model under ``memascend`` (its host
+    tier of activation checkpoints unless ``act`` names tiers, or
+    ``"device"`` for ``offload_checkpoints=False``); returns (losses,
+    session facts)."""
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=layers)
+    model = make_offloadable_lm(cfg, 0, torch.float32, device=device)
+    builder = (OffloadPolicy.preset("memascend").with_store(root)
+               .with_adam(compute_dtype="float32", lr=1e-3)
+               .with_overlap(overlap))
+    if act == "device":
+        builder = builder.with_overrides(offload_checkpoints=False)
+    elif act is not None:
+        builder = builder.with_activations(act)
     tokens = np.random.default_rng(0).integers(0, 256, size=(2, 16))
     labels = np.roll(tokens, -1, axis=1)
-    with OffloadSession(model, policy) as s:
+    with OffloadSession(model, builder.build()) as s:
         before = overflow_flag_cuda_.launches
-        losses = [s.train_step(tokens, labels)["loss"]
-                  for _ in range(steps)]
+        metrics = []
+        for _ in range(steps):
+            metrics.append(dict(s.train_step(tokens, labels)))
+            if len(metrics) == 1:
+                grads = np.array(s.flat, copy=True)
+        losses = [m["loss"] for m in metrics]
         facts = {"launches": overflow_flag_cuda_.launches - before,
                  "pinned": torch.from_numpy(s.flat[:16]).is_pinned(),
+                 "grads": grads,
+                 "act_write_failures": sum(m["act_write_failures"]
+                                           for m in metrics),
                  "eval": s.eval_loss(tokens, labels),
                  "master": s.master_param("block_000", "attn.w_q")}
     return losses, facts
@@ -344,6 +359,22 @@ def test_train_sync_equals_full_on_the_card(cuda, tmp_path):
     assert sync == full
     assert s_facts["eval"] == f_facts["eval"]
     np.testing.assert_array_equal(s_facts["master"], f_facts["master"])
+
+
+def test_act_tiers_equal_device_checkpoints_on_the_card(cuda, tmp_path):
+    """ssd, host and recompute checkpoints at 3 layers (an ssd fetch
+    staged through the async store read, a host checkpoint fetched early
+    to seed a recompute): losses, step-1 landed gradients, eval and a
+    master bit-equal to checkpoints kept on the card."""
+    tiers, t_facts = _train("cuda", str(tmp_path / "tiers"), steps=2,
+                            act=("ssd", "host", "recompute"), layers=3)
+    dev, d_facts = _train("cuda", str(tmp_path / "dev"), steps=2,
+                          act="device", layers=3)
+    assert tiers == dev
+    np.testing.assert_array_equal(t_facts["grads"], d_facts["grads"])
+    assert t_facts["eval"] == d_facts["eval"]
+    np.testing.assert_array_equal(t_facts["master"], d_facts["master"])
+    assert t_facts["act_write_failures"] == 0
 
 
 # -- the fused AdamW step ------------------------------------------------------

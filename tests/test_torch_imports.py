@@ -31,7 +31,7 @@ def test_port_has_modules():
     "core/loss_scale.py", "core/overflow.py", "core/optimizer.py",
     "core/session.py", "kernels/overflow_check.py", "kernels/ops.py",
     "kernels/fused_adam.py", "serve/request.py", "serve/spec.py",
-    "serve/scheduler.py"])
+    "serve/scheduler.py", "core/checkpoint.py", "data/pipeline.py"])
 def test_training_slice_modules_are_scanned(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 

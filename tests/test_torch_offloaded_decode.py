@@ -186,10 +186,12 @@ def test_mid_generate_failure_returns_every_slot(units, prompts,
 def test_entry_points_refuse_what_is_not_ported(tmp_store_root):
     model = make_offloadable_lm(TCFG, 0, torch.float32, device="cpu")
     policy = _policy(tmp_store_root, "float32")
-    # training runs device-resident checkpoints only: the preset's default
-    # host tier belongs to the activation-offload slice
-    with pytest.raises(NotImplementedError, match="activation-offload"):
-        OffloadSession(model, policy, mode="train")
+    # a train-mode session takes the preset as shipped: its default host
+    # tier of activation checkpoints, one per block
+    with OffloadSession(model, _policy(tmp_store_root + "/train", "float32"),
+                        mode="train") as s:
+        assert s._act_tiers == ("host",) * TCFG.n_layers
+    s.tracker.assert_quiescent()
     with OffloadedDecoder(model, policy) as dec:
         # without a DecodeSpec the decoder runs the uncached path; the
         # cached one needs the spec's KV page slots in the pool census

@@ -20,8 +20,8 @@ Tolerances, each with its reason:
 * ``memascend-bf16`` state: bit-identical given the same gradients;
 * within the port, sync == h2d == full: bit for bit.
 
-Every case keeps device-resident checkpoints
-(``offload_checkpoints=False``), the tier this port runs so far.
+Every case runs the preset's activation checkpoints as shipped (the
+``host`` tier); ``tests/test_torch_act_stream.py`` covers the other tiers.
 """
 
 import inspect
@@ -80,8 +80,7 @@ def _with_inf(units):
 def _policy(pkg_policy, preset, root, compute, overlap="full"):
     return (pkg_policy.preset(preset).with_store(root)
             .with_adam(compute_dtype=compute)
-            .with_overlap(overlap)
-            .with_overrides(offload_checkpoints=False).build())
+            .with_overlap(overlap).build())
 
 
 def _run(session, batch, steps=STEPS, scale=None):
@@ -287,17 +286,31 @@ def test_commit_write_failure_surfaces_once_and_frees_staging(
 
 @pytest.mark.parametrize("tier", ["host", "ssd", "recompute",
                                   ["ssd", "host"]])
-def test_offloaded_act_tiers_raise_naming_their_slice(tmp_store_root, tier):
-    """Only device-resident checkpoints run in this port: every offloaded
-    tier, chosen through the reference builder's ``with_activations``,
-    raises before a step (and releases the store); an unknown tier is
-    refused at build, as in the reference."""
-    model = from_numpy_units(TCFG, _units("float32").units, torch.float32,
-                             device="cpu")
-    policy = (OffloadPolicy.preset("memascend").with_store(tmp_store_root)
-              .with_activations(tier).build())
-    with pytest.raises(NotImplementedError, match="activation-offload"):
-        OffloadSession(model, policy)
+def test_offloaded_act_tiers_raise_naming_their_slice(batch, tmp_store_root,
+                                                      tier):
+    """Every offloaded tier, chosen through the reference builder's
+    ``with_activations``, trains a step with the loss and landed gradients
+    of device-resident checkpoints, bit for bit (the name dates from when
+    these tiers raised at construction); an unknown tier is refused at
+    build, as in the reference."""
+    units = _units("float32").units
+    runs = {}
+    for key, act in (("device", "device"), ("tier", tier)):
+        model = from_numpy_units(TCFG, units, torch.float32, device="cpu")
+        builder = (OffloadPolicy.preset("memascend")
+                   .with_store(f"{tmp_store_root}/{key}")
+                   .with_adam(compute_dtype="float32"))
+        policy = (builder.with_overrides(offload_checkpoints=False).build()
+                  if act == "device" else
+                  builder.with_activations(act).build())
+        with OffloadSession(model, policy) as s:
+            m = s.train_step(*batch)
+            runs[key] = (m["loss"], np.array(s.flat, copy=True),
+                         m["act_write_failures"])
+        s.tracker.assert_quiescent()
+    tier_loss, tier_grads, failures = runs["tier"]
+    assert tier_loss == runs["device"][0] and failures == 0
+    np.testing.assert_array_equal(tier_grads, runs["device"][1])
     with pytest.raises(ValueError, match="act_policy"):
         OffloadPolicy.preset("memascend").with_store(
             tmp_store_root).with_activations("device").build()
