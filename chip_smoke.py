@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--layers N] [--new-tokens N] [--train-layers N]
-                          [--serve-layers N] [--seed S]
+                          [--serve-layers N] [--moe-train-layers N]
+                          [--moe-layers N] [--seed S]
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -27,11 +28,10 @@ Phases (each raises on failure; the script exits non-zero):
 5. cached decode: SSD-offloaded decode of qwen3-4b at full width and
    ``--layers`` depth (random weights from ``--seed``) through
    ``OffloadedDecoder.generate`` under the ``memascend`` policy with full
-   overlap; the attention kernel's launch counts (total and per path) are
-   zeroed just before and read just after, every launch on the tensor
-   cores; then the first-token logits are held against a
-   device-resident forward of the same weights through the plain
-   attention;
+   overlap; the model paths attend through ``attention_scores``, as the
+   reference's do, so the attention kernel's launch counts, zeroed just
+   before and read just after, must stay 0; then the first-token logits
+   are held against a device-resident forward of the same weights;
 6. training: three ``OffloadSession.train_step``s and one ``eval_loss`` of
    qwen3-4b at full width and ``--train-layers`` depth on one seeded batch,
    ``memascend`` as shipped (every block's activation checkpoint in host
@@ -45,26 +45,42 @@ Phases (each raises on failure; the script exits non-zero):
    runs two steps (the second overlapping the first's Adam), and its
    step-1 loss and landed gradients and step-2 loss must equal the host
    phase's bit for bit;
-7. fused AdamW at its entry point: three ``ops.fused_adam`` steps over
-   qwen3-4b's largest tensor (the tied embedding, 388,956,160 fp32), the
-   kernel's launch count zeroed just before and read just after, step 1
-   held bit for bit against the plain version;
+7. the kernels reached at their entry points only, each launch count
+   zeroed just before and read just after: three ``ops.fused_adam`` steps
+   over qwen3-4b's largest tensor (the tied embedding, 388,956,160 fp32),
+   step 1 held bit for bit against the plain version, and three
+   ``ops.swa_attention`` calls at the cached-decode prefill's shape, held
+   against the plain version;
 8. serving breadth on one ``memascend`` decoder of qwen3-4b at full width
    and ``--serve-layers`` depth (overlap ``full``, ``DecodeSpec(batch=4,
    max_seq=640, bucket=64)``):
    a. uncached decode, ``generate(use_cache=False)`` at batch 4, prompt
       128: its first-step logits within 8 bf16 ULPs of each row's max of
-      the cached prefill's, token agreement with the cached path;
+      the cached prefill's (the gap is printed: 0 since both run
+      ``attention_scores``), token agreement with the cached path;
    b. continuous batching, ``ServingEngine.run`` over 8 requests with
       seeded prompts of 64-448 tokens, 8-16 new tokens and arrivals over
-      ~2 s: every request done, one tensor-core attention launch per
-      block per prefill group, retired slots' pages reclaimed, two requests re-run alone
-      through a fresh engine give the same tokens;
+      ~2 s: every request done, no attention-kernel launch, retired
+      slots' pages reclaimed, two requests re-run alone through a fresh
+      engine give the same tokens;
    c. speculative decode, ``generate(spec=SpecConfig(k=4))`` on prompts
       that repeat a seeded 32-token pattern to 256 tokens, equal to the
       plain greedy tokens, and the ``verify_step`` logits of a 4-token
       window equal (``torch.equal``) the ``decode_step`` chain's;
-9. print the ``kernels`` JSON line, the card line, and the result line.
+9. MoE expert paging on qwen3-30b-a3b at full width (d_model 2048, 32/4
+   heads, 128 experts, top-8, d_ff_expert 768, vocab 151,936), random
+   weights from ``--seed``:
+   a. training at ``--moe-train-layers`` depth: two ``train_step``s of
+      batch 2 x 512 under ``memascend`` with ``expert_paging="all"``, the
+      store dropped, then the same two steps with ``"routed"`` (384 expert
+      pages of host budget each); the losses bit-equal, step 1's within
+      rel 1e-3 of a device-resident forward, one overflow-kernel launch
+      per gradient tensor a step, the expert bytes, stage gets and hits
+      of each arm;
+   b. cached decode at ``--moe-layers`` depth: batch 4, 512-token
+      prompts, 16 new tokens under ``"all"`` and ``"routed"``: equal
+      tokens, the routed arm moving fewer expert bytes;
+10. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
@@ -105,10 +121,6 @@ from repro_torch.kernels.overflow_check import (  # noqa: E402
     overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     attention_path, swa_attention_cuda, swa_attention_plain)
-from repro_torch.models.attention import gqa_project_qkv  # noqa: E402
-from repro_torch.models.layers import (dense, embed_lookup,  # noqa: E402
-                                       lm_logits, rms_norm)
-from repro_torch.models.transformer import apply_ffn  # noqa: E402
 from repro_torch.serve import (OffloadedDecoder, Request,  # noqa: E402
                                RequestState, ServingEngine, SpecConfig)
 
@@ -289,6 +301,31 @@ def check_attention_counts(expect: int, what: str) -> dict:
                              f"{paths} in {what}; expected {expect}, all "
                              f"on the tensor cores")
     return paths
+
+
+def run_attention_path(gen) -> dict:
+    """Three calls of the entry point ``ops.swa_attention`` at the
+    cached-decode prefill's shape (B 4, H 32, KH 8, S 512, D 128, bf16,
+    causal), the launch counts zeroed just before and read just after;
+    the first call's output within the bf16 tolerance of the plain
+    version and the three equal.  The model paths attend through
+    ``attention_scores`` (as the reference's do), so this entry point is
+    where the kernel runs, as ``ops.fused_adam`` is for fused AdamW."""
+    q, k, v = _qkv(gen, BATCH, 32, 8, PROMPT, 128, torch.bfloat16)
+    want = swa_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    zero_attention_counts()
+    outs = [ops.swa_attention(q, k, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    paths = check_attention_counts(3, "three entry-point calls")
+    err = (outs[0].float() - want.float()).abs().max().item()
+    if not err <= ATTN_TOL[torch.bfloat16] or not all(
+            torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError(f"swa_attention entry point: max err {err}, "
+                             f"or the three calls differ")
+    print(f"  swa_attention entry point: 3 calls at B{BATCH} H32 KH8 "
+          f"S{PROMPT} D128 bf16, {paths}, max err {err:.3e}")
+    return {"launches": 3, "path_launches": paths, "max_abs_err": err}
 
 
 # -- phase 3 + 4: the overflow-screen kernel ----------------------------------
@@ -520,31 +557,25 @@ def time_fused_adam(gen) -> dict:
 
 # -- phase 5: the main path ----------------------------------------------------
 
-def resident_first_logits(cfg, units, prompts) -> np.ndarray:
+def _resident(params: dict, device) -> dict:
+    """One unit's weights on the device in bf16, unstreamed."""
+    return {k: to_torch(cast_host(v, "bfloat16"), torch.bfloat16).to(device)
+            for k, v in params.items()}
+
+
+def resident_first_logits(model, prompts) -> np.ndarray:
     """Last-position logits of a plain device-resident forward of the same
-    bf16 weights: no streaming, no KV cache, plain attention."""
+    bf16 weights through the model's full-sequence block: no streaming,
+    no KV cache."""
     dev = torch.device("cuda")
-
-    def load(params):
-        return {k: to_torch(cast_host(v, "bfloat16"),
-                            torch.bfloat16).to(dev)
-                for k, v in params.items()}
-
     tokens = torch.from_numpy(prompts.astype(np.int64)).to(dev)
-    b, s = prompts.shape
-    h = embed_lookup(load(units[0].params)["embed"], tokens)
-    positions = torch.arange(s, device=dev).expand(b, s)
-    for unit in units[1:-1]:
-        p = load(unit.params)
-        hn = rms_norm(h, p["norm_mixer"], cfg.rms_eps)
-        q, k, v = gqa_project_qkv(p, hn, cfg, positions)
-        att = swa_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2))
-        mix = dense(att.transpose(1, 2).reshape(b, s, -1), p["attn.w_o"])
-        h = apply_ffn(cfg, "dense", p, h + mix)
-    p = load(units[-1].params)
-    hl = rms_norm(h[:, -1:], p["final_norm"], cfg.rms_eps)
-    return lm_logits(hl, p["head"])[:, 0].cpu().numpy()
+    with torch.no_grad():
+        h = model.embed_apply(_resident(model.units[0].params, dev), tokens)
+        for unit in model.units[1:-1]:
+            h = model.block_apply(_resident(unit.params, dev), h)
+        logits = model.head_logits(_resident(model.units[-1].params, dev),
+                                   h[:, -1:])
+    return logits[:, 0].cpu().numpy()
 
 
 def run_main_path(args, workdir: str) -> dict:
@@ -583,9 +614,10 @@ def run_main_path(args, workdir: str) -> dict:
         tokens = dec.generate(prompts, args.new_tokens)
         torch.cuda.synchronize()
         generate_s = time.perf_counter() - t1
+        # the prefill attends through attention_scores, as the uncached
+        # pass does: no model path reaches the attention kernel
         launches = swa_attention_cuda.launches
-        paths = check_attention_counts(
-            cfg.n_layers, f"one prefill of {cfg.n_layers} blocks")
+        check_attention_counts(0, f"one prefill of {cfg.n_layers} blocks")
         if tokens.shape != (BATCH, args.new_tokens) or \
                 tokens.min() < 0 or tokens.max() >= cfg.vocab:
             raise AssertionError(f"bad generated tokens {tokens.shape}")
@@ -629,7 +661,7 @@ def run_main_path(args, workdir: str) -> dict:
         requested, reserved = pinned_stats.live_requested, \
             pinned_stats.live_allocated
 
-    ref = resident_first_logits(cfg, model.units, prompts)
+    ref = resident_first_logits(model, prompts)
     scale = np.maximum(np.abs(ref).max(-1, keepdims=True), 1.0)
     rel = float((np.abs(first_logits - ref) / scale).max())
     print(f"  first-token logits vs device-resident plain forward: max "
@@ -664,7 +696,6 @@ def run_main_path(args, workdir: str) -> dict:
         "pinned_requested_bytes": requested,
         "pinned_reserved_bytes": reserved,
         "slot_is_pinned": pinned, "swa_launches": launches,
-        "swa_path_launches": paths,
         "logit_max_rel_diff": rel,
         # device time of one profiled step (kernels + copies, summed over
         # the compute and copy streams) over an unprofiled step's wall time
@@ -689,11 +720,12 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _train_policy(workdir: str, n_params: int, name: str, act=None):
+def _train_policy(workdir: str, n_params: int, name: str, act=None,
+                  experts=None):
     """memascend as shipped (the host tier of activation checkpoints,
-    unless ``act`` names per-block tiers) on a direct-NVMe store sized for
-    master + m + v (fp32) + bf16 compute weights, 14 B/param, plus
-    slack."""
+    unless ``act`` names per-block tiers; ``experts`` = (mode, page
+    slots) for expert paging) on a direct-NVMe store sized for master + m
+    + v (fp32) + bf16 compute weights, 14 B/param, plus slack."""
     capacity = -(-(14 * n_params) // 2) + (512 << 20)
     root = os.path.join(workdir, name)
     builder = (OffloadPolicy.preset("memascend")
@@ -702,6 +734,9 @@ def _train_policy(workdir: str, n_params: int, name: str, act=None):
                    root, n_devices=2, device_capacity=capacity)))
     if act is not None:
         builder = builder.with_activations(act)
+    if experts is not None:
+        builder = builder.with_expert_paging(experts[0],
+                                             page_slots=experts[1])
     return builder.build()
 
 
@@ -1176,9 +1211,8 @@ def run_continuous(cfg, dec, rng) -> dict:
     states = [r.state for r in report.requests]
     if states != [RequestState.DONE] * N_REQUESTS:
         raise AssertionError(f"request states {states}")
-    paths = check_attention_counts(
-        cfg.n_layers * report.prefills,
-        f"{report.prefills} prefill groups of {cfg.n_layers} blocks")
+    check_attention_counts(
+        0, f"{report.prefills} prefill groups of {cfg.n_layers} blocks")
     if not report.kv_stats["reclaims"] > 0:
         raise AssertionError("retired slots' pages were not reclaimed")
     for r in report.requests:
@@ -1205,7 +1239,6 @@ def run_continuous(cfg, dec, rng) -> dict:
            "prefill_groups": report.prefills,
            "decode_steps": report.decode_steps,
            "swa_launches": launches,
-           "swa_path_launches": paths,
            "kv_reclaims": report.kv_stats["reclaims"],
            "device_busy_ms": busy_ms or None,
            "device_idle_share": (1.0 - busy_ms / (1e3 * report.duration_s))
@@ -1301,6 +1334,216 @@ def run_serve_paths(args, workdir: str) -> dict:
     return out
 
 
+# -- phase 9: MoE expert paging -----------------------------------------------
+
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 512, 2
+# host expert-page budget: one layer's 128 experts x 3 tensors
+MOE_PAGE_SLOTS = 384
+MOE_DECODE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 16
+
+
+def _moe_config(n_layers: int):
+    return dataclasses.replace(get_config("qwen3-30b-a3b"), n_layers=n_layers)
+
+
+def _expert_counters(o0: dict, o1: dict) -> dict:
+    return {k: o1[k] - o0[k] for k in ("expert_fetch_bytes",
+                                      "expert_stage_gets",
+                                      "expert_stage_hits")}
+
+
+def resident_moe_loss(model, tokens, labels, device) -> float:
+    """Loss of a plain device-resident forward of the same bf16 weights,
+    each paged block's per-expert pages stacked back into (E, ...) tensors
+    and run through the model's full-sequence block (free top-k)."""
+    dev = torch.device(device)
+    tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    lab = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    with torch.no_grad():
+        h = model.embed_apply(_resident(model.units[0].params, dev), tok)
+        for unit in model.units[1:-1]:
+            p = _resident(unit.params, dev)
+            triples = model.expert_meta[unit.name]["experts"]
+            for j, name in enumerate(("moe.w_gate", "moe.w_up",
+                                      "moe.w_down")):
+                p[name] = torch.stack([p.pop(t[j]) for t in triples])
+            h = model.block_apply(p, h)
+            del p
+        return model.head_loss(_resident(model.units[-1].params, dev), h,
+                               lab).item()
+
+
+def run_moe_train(args, workdir: str, device: str = "cuda") -> dict:
+    """Two train steps under expert_paging "all", then the same two on a
+    fresh store under "routed", over one model and batch."""
+    cfg = _moe_config(args.moe_train_layers)
+    free = shutil.disk_usage(workdir).free
+    gen = torch.Generator(device=device).manual_seed(args.seed + 4)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device=device,
+                                expert_paging="routed")
+    rng = np.random.default_rng(args.seed + 4)
+    tokens = rng.integers(0, cfg.vocab, size=(MOE_BATCH, MOE_SEQ),
+                          dtype=np.int64)
+    labels = np.roll(tokens, -1, axis=1)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    n_tensors = sum(len(u.params) for u in model.units)
+    e = cfg.moe
+    print(f"MoE training: {cfg.name} d_model {cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} experts {e.n_experts} top-"
+          f"{e.top_k} d_ff_expert {e.d_ff_expert} vocab {cfg.vocab}, depth "
+          f"{cfg.n_layers} of 48 (--moe-train-layers), batch {MOE_BATCH} x "
+          f"{MOE_SEQ}, {MOE_STEPS} steps an arm; {n_params} parameters in "
+          f"{n_tensors} tensors, store {14 * n_params / 1e9:.1f} GB; free "
+          f"disk {free / 1e9:.1f} GB")
+    if free < 14 * n_params + (2 << 30):
+        raise RuntimeError(f"not enough disk for the MoE store: {free} B")
+    arms = {}
+    for mode in ("all", "routed"):
+        t0 = time.perf_counter()
+        policy = _train_policy(workdir, n_params, f"moe_{mode}",
+                               experts=(mode, MOE_PAGE_SLOTS))
+        with OffloadSession(model, policy) as session:
+            setup_s = time.perf_counter() - t0
+            _sync(device)
+            overflow_flag_cuda_.launches = 0
+            steps, walls, experts = [], [], []
+            for step in range(MOE_STEPS):
+                o0 = session.overlap_snapshot()
+                t1 = time.perf_counter()
+                m = dict(session.train_step(tokens, labels))
+                _sync(device)
+                walls.append(time.perf_counter() - t1)
+                steps.append(m)
+                experts.append(_expert_counters(o0,
+                                                session.overlap_snapshot()))
+                print(f"  {mode} step {step + 1}: loss {m['loss']!r} "
+                      f"{walls[-1]:.2f} s, optim_gate_s "
+                      f"{m['optim_gate_s']:.2f}, expert_fetch_wait_s "
+                      f"{m['expert_fetch_wait_s']:.3f}, {experts[-1]}")
+            launches = overflow_flag_cuda_.launches
+            t2 = time.perf_counter()
+            session.synchronize()
+            adam_tail_s = time.perf_counter() - t2
+            pinned = session.tracker.component("pinned")
+            arms[mode] = {
+                "setup_s": setup_s, "step_s": walls,
+                "adam_tail_s": adam_tail_s,
+                "losses": [m["loss"] for m in steps],
+                "applied": [m["applied"] for m in steps],
+                "overflow_launches": launches,
+                "expert_per_step": experts,
+                "expert_fetch_wait_s": [m["expert_fetch_wait_s"]
+                                        for m in steps],
+                "optim_gate_s": [m["optim_gate_s"] for m in steps],
+                "fetch_wait_s": [m["fetch_wait_s"] for m in steps],
+                "peak_host_bytes": session.tracker.peak_allocated,
+                "pinned_requested_bytes": pinned.live_requested,
+                "pinned_reserved_bytes": pinned.live_allocated,
+                "expert_cache": session.expert_cache_stats()}
+        _drop_store(workdir, f"moe_{mode}")
+        print(f"  {mode}: {arms[mode]}")
+    ref_loss = resident_moe_loss(model, tokens, labels, device)
+    got = arms["all"]["losses"]
+    loss_rel = abs(got[0] - ref_loss) / abs(ref_loss)
+    bytes_ = {m: sum(x["expert_fetch_bytes"]
+                     for x in arms[m]["expert_per_step"]) for m in arms}
+    out = {"moe_train_layers": cfg.n_layers, "moe_train_params": n_params,
+           "moe_train_tensors": n_tensors, "arms": arms,
+           "resident_loss": ref_loss, "loss_rel_diff": loss_rel,
+           "expert_fetch_bytes": bytes_,
+           "routed_over_all_bytes": bytes_["routed"] / bytes_["all"]}
+    print(f"  step-1 loss {got[0]!r} vs resident {ref_loss!r}: rel "
+          f"{loss_rel:.3e} (tol {LOSS_RTOL:g}); expert bytes routed/all "
+          f"{out['routed_over_all_bytes']:.4f}")
+    if arms["all"]["losses"] != arms["routed"]["losses"]:
+        raise AssertionError(f"routed losses {arms['routed']['losses']} "
+                             f"differ from all-resident "
+                             f"{arms['all']['losses']}")
+    if not (np.isfinite(got).all() and all(
+            all(a["applied"]) for a in arms.values())):
+        raise AssertionError(f"MoE losses {got} not finite or not applied")
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"MoE step-1 loss differs from the resident "
+                             f"forward: {loss_rel}")
+    launches = [a["overflow_launches"] for a in arms.values()]
+    if launches != [n_tensors * MOE_STEPS] * 2:
+        raise AssertionError(f"overflow_check launches {launches} for "
+                             f"{n_tensors} tensors x {MOE_STEPS} steps")
+    # at 1,024 tokens nearly every expert is routed: the routed arm saves
+    # few bytes, and a mispredicted prestage may even cost some
+    if not min(bytes_.values()) > 0:
+        raise AssertionError(f"expert bytes {bytes_}")
+    return out
+
+
+def run_moe_decode(args, workdir: str) -> dict:
+    """Cached greedy decode over a paged-MoE serve session under "all",
+    then "routed", each on its own store (dropped after)."""
+    cfg = _moe_config(args.moe_layers)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 5)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device="cuda",
+                                expert_paging="routed")
+    prompts = np.random.default_rng(args.seed + 5).integers(
+        0, cfg.vocab, size=(MOE_DECODE_BATCH, MOE_PROMPT), dtype=np.int64)
+    spec = DecodeSpec(batch=MOE_DECODE_BATCH,
+                      max_seq=MOE_PROMPT + MOE_NEW + BUCKET, bucket=BUCKET)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    kv_bytes = 2 * 2 * MOE_DECODE_BATCH * spec.max_seq * cfg.n_kv_heads * \
+        cfg.head_dim * cfg.n_layers
+    capacity = -(-(2 * n_params + kv_bytes) // 2) + (256 << 20)
+    print(f"MoE decode: {cfg.name} depth {cfg.n_layers} of 48 "
+          f"(--moe-layers), batch {MOE_DECODE_BATCH}, prompt {MOE_PROMPT}, "
+          f"{MOE_NEW} new tokens; {n_params} parameters, serve store "
+          f"{2 * n_params / 1e9:.2f} GB an arm")
+    arms = {}
+    for mode in ("all", "routed"):
+        root = os.path.join(workdir, f"moe_serve_{mode}")
+        policy = (OffloadPolicy.preset("memascend")
+                  .with_expert_paging(mode, page_slots=MOE_PAGE_SLOTS)
+                  .with_store(factory=lambda root=root: DirectNVMeEngine(
+                      root, n_devices=2, device_capacity=capacity))
+                  .build())
+        t0 = time.perf_counter()
+        with OffloadedDecoder(model, policy, decode=spec) as dec:
+            setup_s = time.perf_counter() - t0
+            s = dec.session
+            o0 = s.overlap_snapshot()
+            t1 = time.perf_counter()
+            tokens = dec.generate(prompts, MOE_NEW)
+            torch.cuda.synchronize()
+            generate_s = time.perf_counter() - t1
+            o1 = s.overlap_snapshot()
+            arms[mode] = {"setup_s": setup_s, "generate_s": generate_s,
+                          "tokens": tokens,
+                          **_expert_counters(o0, o1),
+                          "expert_fetch_wait_s":
+                              o1["expert_fetch_wait_seconds"]
+                              - o0["expert_fetch_wait_seconds"],
+                          "peak_host_bytes": s.tracker.peak_allocated,
+                          "expert_cache": s.expert_cache_stats()}
+        shutil.rmtree(root, ignore_errors=True)
+        print(f"  {mode}: " + str({k: v for k, v in arms[mode].items()
+                                   if k != "tokens"}))
+    toks = [arms[m].pop("tokens") for m in ("all", "routed")]
+    ratio = arms["routed"]["expert_fetch_bytes"] / \
+        arms["all"]["expert_fetch_bytes"]
+    out = {"moe_layers": cfg.n_layers, "moe_serve_params": n_params,
+           "arms": arms, "routed_over_all_bytes": ratio,
+           "tokens_equal": bool(np.array_equal(*toks))}
+    print(f"  tokens equal: {out['tokens_equal']}; expert bytes "
+          f"routed/all {ratio:.4f}")
+    if toks[0].shape != (MOE_DECODE_BATCH, MOE_NEW) or \
+            not (0 <= toks[0]).all() or not (toks[0] < cfg.vocab).all():
+        raise AssertionError(f"bad MoE tokens {toks[0].shape}")
+    if not out["tokens_equal"]:
+        raise AssertionError(f"routed decode tokens {toks[1]} differ from "
+                             f"all-resident {toks[0]}")
+    if not 0 < ratio < 1:
+        raise AssertionError(f"routed decode moved {ratio} of the "
+                             f"all-resident expert bytes")
+    return out
+
+
 def _device_busy_ms(prof) -> tuple[float, list]:
     """Device-side events only (kernels and copies): the host ops that
     launched them carry the same time again."""
@@ -1314,16 +1557,21 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=4,
                     help="qwen3-4b depth (the full model has 36)")
     ap.add_argument("--new-tokens", type=int, default=32)
-    ap.add_argument("--train-layers", type=int, default=4,
+    ap.add_argument("--train-layers", type=int, default=3,
                     help="qwen3-4b depth of the training phase")
-    ap.add_argument("--serve-layers", type=int, default=4,
+    ap.add_argument("--serve-layers", type=int, default=2,
                     help="qwen3-4b depth of the serving-breadth phases")
+    ap.add_argument("--moe-train-layers", type=int, default=1,
+                    help="qwen3-30b-a3b depth of the MoE training phase "
+                         "(the full model has 48)")
+    ap.add_argument("--moe-layers", type=int, default=2,
+                    help="qwen3-30b-a3b depth of the MoE decode phase")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.new_tokens < 3 or min(args.layers, args.train_layers,
-                                  args.serve_layers) < 1:
-        ap.error("needs --new-tokens >= 3 and --layers, --train-layers and "
-                 "--serve-layers >= 1")
+                                  args.serve_layers, args.moe_train_layers,
+                                  args.moe_layers) < 1:
+        ap.error("needs --new-tokens >= 3 and every --*layers >= 1")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -1385,8 +1633,9 @@ def main() -> int:
     phase_s = {}
     t = time.perf_counter()
     adam_path = run_adam_path(gen)
+    attn_path = run_attention_path(gen)
     torch.cuda.empty_cache()
-    phase_s["adam"] = time.perf_counter() - t
+    phase_s["entry_points"] = time.perf_counter() - t
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_store_") as workdir:
@@ -1405,14 +1654,24 @@ def main() -> int:
         run_act_tiers(workdir, host_run)
         del host_run
         phase_s["activation_tiers"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_moe_") as workdir:
+        t = time.perf_counter()
+        moe_train = run_moe_train(args, workdir)
+        torch.cuda.empty_cache()
+        phase_s["moe_training"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run_moe_decode(args, workdir)
+        phase_s["moe_decode"] = time.perf_counter() - t
     print(f"phase seconds: {phase_s}")
 
     kernels = [{
         "name": "swa_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:104",
-        "launches": main_path["swa_launches"], "max_abs_err": max_err,
-        **timing, "path_launches": main_path["swa_path_launches"],
+        "launches": attn_path["launches"], "max_abs_err": max_err,
+        **timing, "path_launches": attn_path["path_launches"],
+        "model_path_launches": main_path["swa_launches"],
         "long_prompt": {"shape": f"B1 H32 KH8 S{LONG_PROMPT} D128 bf16 "
                                  f"causal", **long_timing},
         "build": attn_build, "build_s": build_s}, {
@@ -1420,7 +1679,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/overflow_check.cu",
         "replaces": "src/repro/kernels/overflow_check.py:71",
         "launches": train["overflow_launches"], "max_abs_err": ov_err,
-        **ov_timing}, {
+        **ov_timing, "moe_launches": {
+            m: a["overflow_launches"]
+            for m, a in moe_train["arms"].items()}}, {
         "name": "fused_adam", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_adam.cu",
         "replaces": "src/repro/kernels/fused_adam.py:72",

@@ -18,7 +18,8 @@ direct NVMe engine); ``memascend-bf16`` adds the half-precision optimizer.
 The activation-checkpoint fields (``offload_checkpoints``, ``act_policy``)
 pick each block's checkpoint tier as in the reference: ``host`` by default,
 ``ssd``, ``recompute``, or ``device`` with ``offload_checkpoints=False``.
-MoE expert paging comes with the MoE slice.
+``expert_paging`` / ``expert_page_slots`` pick MoE expert residency
+(``off``, ``all`` or ``routed``, see :mod:`repro_torch.core.paged`).
 """
 
 from __future__ import annotations
@@ -94,19 +95,55 @@ class OffloadableModel:
     block_step: Callable | None = None
     block_verify: Callable | None = None
     kv_shape: Callable[[int, int], tuple] | None = None
+    # route-aware expert paging (MoE): staged applies splitting one MoE
+    # block into a routing half (the device computes the expert assignment
+    # the host reads back) and an expert half (consumes the routed expert
+    # stacks the ExpertFetchOp staged).  ``expert_meta`` maps MoE unit
+    # name -> {"n_experts": E, "experts": [(gate, up, down) param-name
+    # triples in stack order]}; units absent from it stream densely.
+    #   block_route(params, h)                       -> hmid, idx
+    #   block_moe(params, gate, up, down, idx, hmid) -> h
+    #   block_moe_bwd(params, gate, up, down, idx, h, dh)
+    #                        -> dparams, dgate, dup, ddown, dh_in
+    #   block_{prefill,step,verify}_route(...)       -> hmid, k, v, idx
+    block_route: Callable | None = None
+    block_moe: Callable | None = None
+    block_moe_bwd: Callable | None = None
+    block_prefill_route: Callable | None = None
+    block_step_route: Callable | None = None
+    block_verify_route: Callable | None = None
+    expert_meta: dict | None = None
 
-    def census(self, inflight_blocks: int = 2,
-               bytes_per_elem: int = 2) -> PoolCensus:
-        """Shape-class census over the units (drives both pool designs)."""
+    def expert_params(self, unit_name: str) -> list[str]:
+        """Per-expert param names of one paged-MoE unit ([] if dense)."""
+        if not self.expert_meta or unit_name not in self.expert_meta:
+            return []
+        return [name for triple in self.expert_meta[unit_name]["experts"]
+                for name in triple]
+
+    def census(self, inflight_blocks: int = 2, bytes_per_elem: int = 2, *,
+               expert_page_slots: int | None = None) -> PoolCensus:
+        """Shape-class census over the units (drives both pool designs).
+
+        With ``expert_page_slots`` set (expert paging on), paged-MoE
+        units' routed-expert tensors leave the per-block streaming counts
+        — they are individually fetched pages, not per-fetch streams —
+        and their class gains that many standalone page slots instead
+        (the expert-residency budget, mirroring ``PoolCensus.with_kv``).
+        """
         per_block: dict[str, int] = {}
         standalone: dict[str, int] = {}
         nbytes: dict[str, int] = {}
         for unit in self.units:
             counts: dict[str, int] = {}
+            paged = set(self.expert_params(unit.name)) \
+                if expert_page_slots is not None else set()
             for key, value in unit.params.items():
                 cls = self.class_of(key)
                 compute_nbytes = value.size * bytes_per_elem  # compute dtype
                 nbytes[cls] = max(nbytes.get(cls, 0), compute_nbytes)
+                if key in paged:
+                    continue    # paged tensors get standalone slots below
                 counts[cls] = counts.get(cls, 0) + 1
             if unit.kind == "block":
                 for cls, c in counts.items():
@@ -114,6 +151,13 @@ class OffloadableModel:
             else:
                 for cls, c in counts.items():
                     standalone[cls] = standalone.get(cls, 0) + c
+        if expert_page_slots is not None:
+            from .paged import EXPERT_PAGE_CLASS
+            if EXPERT_PAGE_CLASS not in nbytes:
+                raise ValueError("expert_page_slots set but no unit has "
+                                 "expert-class tensors")
+            standalone[EXPERT_PAGE_CLASS] = \
+                standalone.get(EXPERT_PAGE_CLASS, 0) + expert_page_slots
         classes = []
         for cls in sorted(nbytes):
             classes.append(ShapeClass(cls, nbytes[cls],
@@ -182,6 +226,14 @@ class OffloadPolicy:
     overlap: str = "full"              # "sync" | "h2d" | "full" (Fig. 6)
     act_policy: object = "host"        # "host" | "ssd" | "recompute" |
     #                                    dict/sequence of per-block tiers
+    expert_paging: str = "off"         # "off" | "all" | "routed": MoE
+    #                                    expert residency (see paged.py) —
+    #                                    "routed" fetches only the experts
+    #                                    the router selected; "all" pages
+    #                                    every expert; "off" streams
+    #                                    experts densely with the block
+    expert_page_slots: int | None = None  # host expert-page budget (pages);
+    #                                       None -> every page resident
 
     def __post_init__(self) -> None:
         if not self.name or not isinstance(self.name, str):
@@ -232,6 +284,20 @@ class OffloadPolicy:
             if bad:
                 raise ValueError(f"act_policy has unknown tier(s) {bad}; "
                                  f"expected {_act_tiers}")
+        if self.expert_paging not in ("off", "all", "routed"):
+            raise ValueError(f"expert_paging must be one of "
+                             f"'off'|'all'|'routed', got "
+                             f"{self.expert_paging!r}")
+        if self.expert_page_slots is not None:
+            if self.expert_paging == "off":
+                raise ValueError("expert_page_slots needs expert_paging="
+                                 "'all'|'routed' (no page pool exists "
+                                 "under 'off')")
+            if self.expert_page_slots < 2:
+                raise ValueError(
+                    f"expert_page_slots must be >= 2 (one page pinned for "
+                    f"a copy, one turning over), got "
+                    f"{self.expert_page_slots}")
         if self.adam.state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"state_dtype must be float32|bfloat16, got "
                              f"{self.adam.state_dtype!r}")
@@ -333,6 +399,14 @@ class PolicyBuilder:
         'recompute', or a dict/sequence of per-block tiers (see
         OffloadPolicy.act_policy)."""
         self._overrides["act_policy"] = policy
+        return self
+
+    def with_expert_paging(self, mode: str, *,
+                           page_slots: int | None = None) -> "PolicyBuilder":
+        """MoE expert residency: 'off' | 'all' | 'routed', with an
+        optional host page budget (see OffloadPolicy.expert_paging)."""
+        self._overrides["expert_paging"] = mode
+        self._overrides["expert_page_slots"] = page_slots
         return self
 
     def with_overrides(self, **field_overrides) -> "PolicyBuilder":

@@ -77,6 +77,18 @@ which step a (batch, K) draft window in one weight pass and return logits
 bitwise equal to K chained steps (the window's positions run at the
 step's own shapes: ``block_verify`` in the adapter, and the head here one
 position at a time).
+
+Expert paging (``policy.expert_paging`` "all" or "routed", over a model
+whose MoE blocks carry per-expert pages): a MoE block splits into its
+routing half, whose top-k indices come back to the host, and its expert
+half, which runs over ``(E, …)`` expert stacks built **on the device**:
+zeros, with only the staged experts' pages copied in from the expert page
+cache's page-locked pool slots (the reference fills zero host stacks and
+copies the whole stack: the same function, and the same pages counted).
+``expert_fetch_bytes`` counts every page copied into a stack, a prestage
+staged on a wrong prediction included, as the reference's does.  Unrouted
+rows are zero and never read, so routed and all-resident residency give
+the same bits.
 """
 
 from __future__ import annotations
@@ -100,11 +112,13 @@ from .loss_scale import DynamicLossScaler
 from .memory_tracker import MemoryTracker
 from .optimizer import OffloadedAdam
 from .overflow import check_region, flat_overflow_check
-from .overlap import (ACT_CLASS, DeviceSlots, OverlapStats, SerialWorker,
-                      done_future)
+from .overlap import (ACT_CLASS, EXPERT_CLASS, DeviceSlots, OverlapStats,
+                      SerialWorker, done_future)
+from .paged import ExpertPageCache
 from .stream_plan import (PLAN_COMPILERS, ActFetchOp, ActSaveOp, ComputeOp,
-                          FetchOp, GradWriteOp, KVReadOp, KVWriteOp,
-                          OptimStepOp, OverflowCheckOp, ReleaseOp, StreamPlan,
+                          ExpertFetchOp, ExpertReleaseOp, FetchOp,
+                          GradWriteOp, KVReadOp, KVWriteOp, OptimStepOp,
+                          OverflowCheckOp, ReleaseOp, StreamPlan,
                           compile_train, resolve_act_policy)
 from .swapper import ParameterSwapper
 
@@ -166,7 +180,9 @@ class _ExecState:
                  "kv", "kv_live", "kv_append", "kv_stage", "kv_slots",
                  "kv_time", "cache_len", "last_pos", "kv_write_slots",
                  "stage_seq", "act_order", "act_next", "act_stage",
-                 "act_reads", "act_slots_out")
+                 "act_reads", "act_slots_out", "expert_route", "expert_idx",
+                 "expert_stage", "expert_live", "expert_slots",
+                 "expert_slots_out")
 
     def __init__(self, tokens: torch.Tensor,
                  labels: torch.Tensor | None = None, scale: float = 1.0):
@@ -208,6 +224,17 @@ class _ExecState:
         self.act_slots_out = 0   # ACT_CLASS submissions not yet consumed —
         #                          capped at the slot depth so the staging
         #                          worker's acquire can never block
+        # expert paging (paged-MoE plans only): the routing indices persist
+        # for the WHOLE plan run — the backward's ExpertFetchOp reuses the
+        # forward's routing
+        self.expert_route: dict[str, np.ndarray] = {}  # unit -> host idx
+        self.expert_idx: dict[str, torch.Tensor] = {}  # unit -> device idx
+        self.expert_stage: dict[str, deque] = {}  # unit -> staged-stack futs
+        self.expert_live: dict[str, tuple] = {}   # unit -> device stacks
+        self.expert_slots: dict[str, tuple] = {}  # unit -> EXPERT_CLASS tokens
+        self.expert_slots_out = 0  # EXPERT_CLASS submissions whose slot has
+        #                            not been returned — capped at the slot
+        #                            depth, like act_slots_out
 
 
 class OffloadSession:
@@ -246,8 +273,34 @@ class OffloadSession:
             backing="cuda" if cuda else "numpy")
         cd_host = policy.adam.compute_np_dtype
         self.compute_dtype = torch_dtype(policy.adam.compute_dtype)
-        census = model.census(policy.inflight_blocks,
-                              bytes_per_elem=cd_host.itemsize)
+        # Expert paging (paged MoE): resolved before the census because the
+        # paged units' per-expert tensors leave the per-block streaming
+        # counts and become standalone expert-page slots instead.
+        self._expert_mode = policy.expert_paging
+        self._expert_meta = model.expert_meta or {}
+        if self._expert_mode != "off" and not self._expert_meta:
+            raise ValueError(
+                f"expert_paging={self._expert_mode!r} but the model has no "
+                f"paged-MoE units; build it with make_offloadable_lm(..., "
+                f"expert_paging=...) so expert tensors split into pages")
+        if self._expert_mode == "off" and self._expert_meta:
+            raise ValueError(
+                "model was built with per-expert pages (expert_meta set) "
+                "but the policy streams experts densely "
+                "(expert_paging='off'); the dense block apply would miss "
+                "the stacked expert weights — align the two knobs")
+        self._paged_params: dict[str, frozenset] = {
+            u: frozenset(model.expert_params(u)) for u in self._expert_meta}
+        expert_pages: dict[tuple[str, str], tuple] = {}
+        for unit in model.units:
+            for pname in self._paged_params.get(unit.name, ()):
+                expert_pages[(unit.name, pname)] = unit.params[pname].shape
+        budget = policy.expert_page_slots or len(expert_pages)
+        self._expert_cache: ExpertPageCache | None = None
+        self._expert_prior: dict[str, np.ndarray] = {}
+        census = model.census(
+            policy.inflight_blocks, bytes_per_elem=cd_host.itemsize,
+            expert_page_slots=budget if expert_pages else None)
         # Cached decode: the KV cache draws slots from the same pool arena
         # the weights stream through, so its residency budget is part of
         # the census (paper §IV-B sizing, extended to decode state).
@@ -273,9 +326,19 @@ class OffloadSession:
                 self._kv_page_shape, dtype=np.int64))
             census = census.with_kv(kv_nbytes, self._kv_resident)
         self.pool = policy.pool_cls(census, self.allocator)
+        # Paged expert tensors are NOT swapper-streamed: they go through
+        # the expert page cache below, one page per (unit, param).
         self.swapper = ParameterSwapper(self.store, self.pool, class_of={
             f"{unit.name}/{key}{COMPUTE_SUFFIX}": model.class_of(key)
-            for unit in model.units for key in unit.params})
+            for unit in model.units for key in unit.params
+            if key not in self._paged_params.get(unit.name, ())})
+        if expert_pages:
+            # pages are born spilled against the {key}.compute store copies
+            # the registration loop below writes: nothing reads before a
+            # fetch, so creating the cache first is safe
+            self._expert_cache = ExpertPageCache(
+                expert_pages, cd_host, self.pool, self.store,
+                resident_limit=budget, store_suffix=COMPUTE_SUFFIX)
         self.scaler = DynamicLossScaler()
         if policy.adam.compute_dtype != "float16":
             self.scaler.scale = 1.0  # only fp16 needs scaling; check stays on
@@ -329,8 +392,11 @@ class OffloadSession:
         if policy.overlap in ("h2d", "full"):
             per_unit: dict[str, int] = {}
             for unit in model.units:
+                paged = self._paged_params.get(unit.name, ())
                 counts: dict[str, int] = {}
                 for key in unit.params:
+                    if key in paged:
+                        continue   # staged as (E, ...) stacks, not per key
                     cls = model.class_of(key)
                     counts[cls] = counts.get(cls, 0) + 1
                 for cls, c in counts.items():
@@ -345,6 +411,10 @@ class OffloadSession:
                 # staged activation checkpoints double-buffer the same way:
                 # one consumed by the current block_bwd, one being staged
                 depths[ACT_CLASS] = 2
+            if expert_pages:
+                # staged expert (E, ...) stacks double-buffer: one triple
+                # feeding the current block_moe, one being staged ahead
+                depths[EXPERT_CLASS] = 2
             self._device_slots = DeviceSlots(depths)
             # latch=False: every staging future is awaited by the executor
             # (the wait half, or the abort path), which delivers failures.
@@ -447,6 +517,8 @@ class OffloadSession:
         steps = []
         if getattr(self, "_kv_cache", None) is not None:
             steps.append(self._kv_cache.close)
+        if getattr(self, "_expert_cache", None) is not None:
+            steps.append(self._expert_cache.close)
         for worker_attr in ("_h2d", "_grad_writer", "_optim_worker",
                             "_optim_prefetch"):
             worker = getattr(self, worker_attr, None)
@@ -561,7 +633,10 @@ class OffloadSession:
     def _param_keys(self, unit_name: str):
         unit, meta = self._units[unit_name]
         cd = self.policy.adam.compute_np_dtype
+        paged = self._paged_params.get(unit_name, ())
         for key, (shape, _size) in meta.items():
+            if key in paged:
+                continue   # streamed as expert pages, not with the unit
             yield key, f"{unit.name}/{key}{COMPUTE_SUFFIX}", cd, shape
 
     def _prefetch_unit(self, unit_name: str) -> None:
@@ -1029,6 +1104,204 @@ class OffloadSession:
             self.tracker.free(rec.handle)
             rec.handle = None
 
+    # -- expert-page streaming (paged MoE) -----------------------------------
+    #
+    # Lifecycle (mirrors the weight stream's split issue/wait halves):
+    #
+    #   route   block_route (or a cached-decode route variant) computes the
+    #           expert assignment; the executor reads the indices back and
+    #           binds them for the WHOLE plan run (the backward reuses the
+    #           forward's routing),
+    #   issue   the FetchOp lookahead window prestages the PREDICTED
+    #           routed set — this plan's own routing when already known
+    #           (backward: exact), else the previous step's actual set,
+    #           or every expert under expert_paging="all" — as device
+    #           (E, ...) stacks under a counted EXPERT_CLASS device slot on
+    #           the staging worker,
+    #   wait    ExpertFetchOp resolves the ACTUAL routed set; a staged set
+    #           that covers it is a hit, otherwise the stale stacks are
+    #           dropped (slot returned) and the actual set is staged on
+    #           demand,
+    #   consume block_moe / block_moe_bwd read the stacks; ExpertReleaseOp
+    #           returns the device slot and trims the page cache back under
+    #           its residency budget.
+    #
+    # Deadlock-freedom of the staged path: the executor never submits an
+    # expert stage while expert_slots_out >= the EXPERT_CLASS depth, so the
+    # staging worker's acquire is always immediately satisfiable — it can
+    # never wedge the shared FIFO worker behind an unreleasable slot.
+    # Unrouted experts are never read by moe_ffn's dispatch or combine
+    # (dropped pairs carry weight zero and read a zero row), so routed-only
+    # stacks give the same bits as all-resident ones.
+
+    def _expert_predict(self, unit: str, state: _ExecState):  # thread: executor
+        """Predicted routed set for a window prestage: every expert under
+        "all", this plan's own routing when the route already ran (the
+        backward re-fetch — exact by construction), else the previous
+        step's actual set (None before any step routed this unit)."""
+        if self._expert_mode == "all":
+            return np.arange(self._expert_meta[unit]["n_experts"])
+        route = state.expert_route.get(unit)
+        if route is not None:
+            return np.unique(route)
+        return self._expert_prior.get(unit)
+
+    def _build_expert_stacks(self, unit: str, ids) -> list:  # thread: executor, h2d-worker
+        """Device (E, ...) stacks in the compute dtype: zeros, with the
+        ``ids`` experts' pages copied in from the page cache (each page
+        pinned until its copy landed).  Rows of other experts stay zero
+        and are never read, so the stacks have the all-resident shapes and
+        the expert half runs one program for both residencies.  Byte
+        accounting lands here: only the copied pages cost SSD/H2D
+        traffic."""
+        meta = self._expert_meta[unit]
+        triples = meta["experts"]
+        _unit, umeta = self._units[unit]
+        cuda = self.device.type == "cuda"
+        nbytes = 0
+        with (torch.cuda.stream(self._copy_stream) if cuda
+              else contextlib.nullcontext()):
+            stacks = [torch.zeros((meta["n_experts"], *umeta[pname][0]),
+                                  dtype=self.compute_dtype,
+                                  device=self.device)
+                      for pname in triples[0]]
+            for i in ids:
+                for stack, pname in zip(stacks, triples[int(i)],
+                                        strict=True):
+                    view = self._expert_cache.ensure(unit, pname, pin=True)
+                    try:
+                        stack[int(i)].copy_(
+                            to_torch(view, self.compute_dtype),
+                            non_blocking=cuda)
+                        if cuda:
+                            # the page-locked slot may be evicted once
+                            # unpinned: the DMA must have landed
+                            self._copy_stream.synchronize()
+                    finally:
+                        self._expert_cache.unpin(unit, pname)
+                    nbytes += view.nbytes
+        if cuda:
+            # the zero fill and the copies ran on the side stream: the
+            # compute stream waits for them, and the caching allocator
+            # keeps the stacks until compute is done with them
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+            self._compute_stream.wait_event(done)
+            for stack in stacks:
+                stack.record_stream(self._compute_stream)
+        self._ostats.bump("expert_fetch_bytes", nbytes)
+        return stacks
+
+    def _stage_experts(self, unit: str, ids: tuple) -> tuple:  # thread: h2d-worker
+        """Staging-worker body: build the stacks under a counted
+        EXPERT_CLASS device slot; a failed expert SSD read returns the
+        slot before it surfaces at the fetch gate."""
+        self._device_slots.acquire(EXPERT_CLASS)
+        try:
+            return (frozenset(int(i) for i in ids),
+                    tuple(self._build_expert_stacks(unit, ids)))
+        except BaseException:
+            self._device_slots.release_all([EXPERT_CLASS])
+            raise
+
+    def _submit_expert_stage(self, unit: str, ids,  # thread: executor
+                             state: _ExecState) -> None:
+        """Issue half: queue one unit's expert staging on the staging
+        worker, behind the same unit's weight (and KV) stages."""
+        fut = self._h2d.submit(
+            functools.partial(self._stage_experts, unit, tuple(ids)))
+        state.expert_stage.setdefault(unit, deque()).append(fut)
+        state.stage_seq.append(("ex", unit))
+        state.expert_slots_out += 1
+
+    def _expert_fetch_now(self, unit: str, ids,  # thread: executor
+                          state: _ExecState) -> tuple:
+        """On-demand stage (miss, or no prestage was issued): through the
+        staging worker when an EXPERT slot is guaranteed free — the
+        executor is about to block on the result, so the worker's acquire
+        must not be able to block — else built inline without a slot
+        (transient, accounted to the fetch wait)."""
+        if self._h2d is not None and state.expert_slots_out < 2:
+            state.expert_slots_out += 1
+            fut = self._h2d.submit(
+                functools.partial(self._stage_experts, unit, tuple(ids)))
+            # NOT in stage_seq: consumed synchronously right here, even on
+            # error (the worker released any slot it held before raising)
+            try:
+                _ids, stacks = fut.result()
+            except BaseException:
+                state.expert_slots_out -= 1
+                raise
+            return stacks, (EXPERT_CLASS,)
+        return tuple(self._build_expert_stacks(unit, ids)), ()
+
+    def _expert_fetch(self, op: ExpertFetchOp,  # thread: executor
+                      state: _ExecState) -> None:
+        """Wait half of the split ExpertFetchOp: resolve the actual routed
+        set, take a covering staged prediction, restage on a miss."""
+        unit = op.unit
+        if self._expert_mode == "all":
+            actual = np.arange(self._expert_meta[unit]["n_experts"])
+        else:
+            actual = np.unique(state.expert_route[unit])
+        self._expert_prior[unit] = actual
+        t0 = time.perf_counter()
+        stacks = tokens = None
+        pending = state.expert_stage.get(unit)
+        if pending:
+            fut = pending.popleft()
+            if not pending:
+                del state.expert_stage[unit]
+            self._ostats.expert_stage_gets += 1
+            try:
+                staged_ids, staged = fut.result()
+            except BaseException:
+                # a failed expert SSD read surfaces exactly once, here;
+                # the worker returned its slot before raising
+                state.expert_slots_out -= 1
+                raise
+            if set(int(i) for i in actual) <= staged_ids:
+                self._ostats.expert_stage_hits += 1
+                stacks, tokens = staged, (EXPERT_CLASS,)
+            else:
+                # stale prediction: drop the stacks, return the slot, and
+                # stage the actual routed set on demand
+                del staged
+                self._device_slots.release_all([EXPERT_CLASS])
+                state.expert_slots_out -= 1
+        if stacks is None:
+            stacks, tokens = self._expert_fetch_now(unit, actual, state)
+        state.expert_live[unit] = tuple(stacks)
+        state.expert_slots[unit] = tokens
+        self._ostats.expert_fetch_wait_seconds += time.perf_counter() - t0
+
+    def _expert_release(self, op: ExpertReleaseOp,  # thread: executor
+                        state: _ExecState) -> None:
+        """ExpertReleaseOp: drop the staged device stacks, return the
+        EXPERT_CLASS slot, and trim the page cache over its keep line (the
+        host pages themselves stay cached for future steps)."""
+        state.expert_live.pop(op.unit, None)
+        tokens = state.expert_slots.pop(op.unit, ())
+        if tokens:
+            self._device_slots.release_all(tokens)
+            state.expert_slots_out -= 1
+        self._expert_cache.release_round()
+
+    def _bind_route(self, unit: str, idx: torch.Tensor,  # thread: executor
+                    state: _ExecState) -> None:
+        """Keep a route stage's expert indices: on the device for the
+        expert half, and on the host (a readback — the routed set is host
+        control flow) for the fetch decision."""
+        state.expert_idx[unit] = idx
+        state.expert_route[unit] = idx.cpu().numpy().reshape(-1)
+
+    def expert_cache_stats(self) -> dict:
+        """Expert page cache spill/refill counters (see
+        :class:`~repro_torch.core.paged.PageStats`); empty when expert
+        paging is off."""
+        return ({} if self._expert_cache is None
+                else self._expert_cache.stats.snapshot())
+
     # -- plan execution ------------------------------------------------------
 
     def execute(self, plan: StreamPlan, state: _ExecState) -> _ExecState:  # thread: executor
@@ -1051,6 +1324,8 @@ class OffloadSession:
         kv_read_units = (frozenset(
             op.unit for op in plan.ops if isinstance(op, KVReadOp))
             if state.kv is not None else frozenset())
+        expert_units = frozenset(
+            op.unit for op in plan.ops if isinstance(op, ExpertFetchOp))
         state.act_order = [op.unit for op in plan.ops
                            if isinstance(op, ActFetchOp)]
         state.act_next = 0
@@ -1093,6 +1368,16 @@ class OffloadSession:
                             if self._h2d is not None and \
                                     unit not in state.kv_stage:
                                 self._submit_kv_stage(unit, state)
+                        if unit in expert_units and self._h2d is not None \
+                                and state.expert_slots_out < 2:
+                            # prestage the predicted routed set behind the
+                            # unit's weight/KV stages; skipped when the
+                            # prediction is unknown (first step) or the
+                            # EXPERT slot budget is out — the ExpertFetchOp
+                            # then stages on demand
+                            pred = self._expert_predict(unit, state)
+                            if pred is not None and len(pred):
+                                self._submit_expert_stage(unit, pred, state)
                         next_prefetch += 1
                     t_fetch = time.perf_counter()
                     state.live[op.unit] = self._fetch_unit(op.unit, state)
@@ -1109,6 +1394,10 @@ class OffloadSession:
                     self._exec_act_save(op, state)
                 elif isinstance(op, ActFetchOp):
                     self._act_fetch(op, state)
+                elif isinstance(op, ExpertFetchOp):
+                    self._expert_fetch(op, state)
+                elif isinstance(op, ExpertReleaseOp):
+                    self._expert_release(op, state)
                 elif isinstance(op, GradWriteOp):
                     self._dispatch_grad_write(op.unit, state)
                 elif isinstance(op, OverflowCheckOp):
@@ -1127,9 +1416,8 @@ class OffloadSession:
                         # a block_bwd just gave an ACT slot back — top the
                         # issue window up ahead of the next weight stages
                         self._act_issue_ahead(state)
-                else:   # expert-paging ops come with the MoE slice
-                    raise NotImplementedError(f"plan op {op!r} is not "
-                                              f"ported yet")
+                else:   # validated at plan build; defensive
+                    raise ValueError(f"unknown plan op {op!r}")
         except BaseException:
             self._abort_execute(state)
             raise
@@ -1150,17 +1438,33 @@ class OffloadSession:
         for tokens in state.kv_slots.values():
             self._device_slots.release_all(tokens)
         state.kv_slots.clear()
+        for tokens in state.expert_slots.values():
+            if tokens:
+                self._device_slots.release_all(tokens)
+        state.expert_slots.clear()
+        state.expert_live.clear()
         state.live.clear()
-        # Staged fetches, KV windows and act checkpoints must settle before
-        # the swapper drain: a queued staging job that ran *after* the
-        # drain would re-issue its reads and leak device slots.  All three
-        # kinds interleave on ONE FIFO worker, so waits follow stage_seq's
+        # Staged fetches, KV windows, act checkpoints and expert stacks must
+        # settle before the swapper drain: a queued staging job that ran
+        # *after* the drain would re-issue its reads and leak device slots.
+        # All four kinds interleave on ONE FIFO worker, so waits follow stage_seq's
         # order — waiting a later weight future while an earlier KV task
         # still blocks on a kv device slot would deadlock.  (Act stages
         # never block on their slot: the executor's act_slots_out cap
-        # guarantees a free ACT slot per submission.)
+        # guarantees a free ACT slot per submission, and expert stages a
+        # free EXPERT slot.)
         for kind, unit in state.stage_seq:
-            if kind == "w":
+            if kind == "ex":
+                pending = state.expert_stage.get(unit)
+                if not pending:
+                    continue
+                fut = pending.popleft()
+                try:
+                    fut.result()
+                except BaseException:
+                    continue      # the worker released its own slot
+                self._device_slots.release_all([EXPERT_CLASS])
+            elif kind == "w":
                 pending = state.h2d.get(unit)
                 if not pending:
                     continue
@@ -1186,6 +1490,10 @@ class OffloadSession:
         state.kv_live.clear()
         state.kv_append.clear()
         state.act_stage.clear()
+        state.expert_stage.clear()
+        state.expert_route.clear()
+        state.expert_idx.clear()
+        state.expert_slots_out = 0
         state.grads.clear()
         if self._grad_writer is not None:
             # the original executor error propagates; queued write-backs
@@ -1277,9 +1585,59 @@ class OffloadSession:
                 params, state.h, k_dev, v_dev, state.cache_len,
                 chunk=self.decode_spec.bucket)
             state.kv_append[op.unit] = (k, v)
-        else:  # expert-paged MoE kinds come with the MoE slice
-            raise NotImplementedError(f"compute kind {op.kind!r} is not "
-                                      f"ported yet")
+        elif op.kind == "block_route":
+            if op.save_input:
+                state.checkpoints[op.unit] = self._bind_checkpoint(
+                    op.unit, state.h)
+            with torch.no_grad():
+                state.h, idx = model.block_route(params, state.h)
+            self._bind_route(op.unit, idx, state)
+        elif op.kind == "block_moe":
+            stacks = state.expert_live[op.unit]
+            idx = state.expert_idx[op.unit]
+            with torch.no_grad():
+                if state.cache_len is None:
+                    state.h = model.block_moe(params, *stacks, idx, state.h)
+                else:
+                    # cached step or verify window: one (B, 1) position at
+                    # a time, as block_verify runs its FFN, so a verify
+                    # position is bitwise the step's
+                    b, kq = state.h.shape[:2]
+                    idx = idx.reshape(b, kq, -1)
+                    state.h = torch.cat(
+                        [model.block_moe(params, *stacks, idx[:, j], hj)
+                         for j, hj in enumerate(split_positions(state.h))],
+                        dim=1)
+        elif op.kind == "block_moe_bwd":
+            x = self._consume_checkpoint(op.unit, state)
+            dparams, dgate, dup, ddown, state.dh = model.block_moe_bwd(
+                params, *state.expert_live[op.unit],
+                state.expert_idx[op.unit], x, state.dh)
+            # the stacked expert grads back under their per-expert param
+            # keys (the flat-buffer layout); unrouted experts' rows are
+            # exactly zero — their weights were never read
+            for i, triple in enumerate(
+                    self._expert_meta[op.unit]["experts"]):
+                for g, pname in zip((dgate, dup, ddown), triple,
+                                    strict=True):
+                    dparams[pname] = g[i]
+            state.grads[op.unit] = dparams
+        elif op.kind in ("block_prefill_route", "block_step_route",
+                         "block_verify_route"):
+            if op.kind == "block_prefill_route":
+                out = model.block_prefill_route(params, state.h)
+            else:
+                k_dev, v_dev = state.kv_live.pop(op.unit)
+                apply = (model.block_step_route
+                         if op.kind == "block_step_route"
+                         else model.block_verify_route)
+                out = apply(params, state.h, k_dev, v_dev, state.cache_len,
+                            chunk=self.decode_spec.bucket)
+            state.h, k, v, idx = out
+            state.kv_append[op.unit] = (k, v)
+            self._bind_route(op.unit, idx, state)
+        else:  # validated at plan build; defensive
+            raise ValueError(f"unknown compute kind {op.kind!r}")
 
     def _read_kv(self, unit_name: str, state: _ExecState) -> None:
         """Wait half of the split KVReadOp: take the staged device K/V
@@ -1310,15 +1668,20 @@ class OffloadSession:
         or the whole padded prompt window scattered across pages
         (``prefill``, only the joiners' slots when ``kv_write_slots`` is
         set); the cache spills dirty pages onward past the residency
-        budget."""
-        k, v = state.kv_append.pop(op.unit)
+        budget.
+
+        K/V are cast on the device to the pages' dtype (the policy's
+        compute dtype) first: the host form of bf16 is ``uint16`` bits, so
+        a numpy assignment of other values into a bf16 page would convert
+        values, not bits."""
+        k, v = (to_host(t.to(self.compute_dtype))
+                for t in state.kv_append.pop(op.unit))
         if op.mode == "prefill":
-            state.kv.write_prefill(op.unit, to_host(k), to_host(v),
-                                   slots=state.kv_write_slots)
+            state.kv.write_prefill(op.unit, k, v, slots=state.kv_write_slots)
         elif op.mode == "verify":
-            state.kv.append_window(op.unit, to_host(k), to_host(v))
+            state.kv.append_window(op.unit, k, v)
         else:
-            state.kv.append(op.unit, to_host(k), to_host(v))
+            state.kv.append(op.unit, k, v)
 
     # -- gradient write-back -------------------------------------------------
 
@@ -1493,10 +1856,15 @@ class OffloadSession:
                 self._adam_work.extend(
                     (unit_name, key) for key in meta)
                 hi = len(self._adam_work)
-            fut = self._optim_worker.submit(functools.partial(
-                self._optim_unit_pipelined, unit_name, lo, hi, inv_scale))
+            task = (self._optim_unit_paged
+                    if unit_name in self._expert_meta
+                    else self._optim_unit_pipelined)
+            fut = self._optim_worker.submit(
+                functools.partial(task, unit_name, lo, hi, inv_scale))
         else:
             self._optim_unit(unit_name, inv_scale)
+            if unit_name in self._expert_meta:
+                self._expert_cache.invalidate_unit(unit_name)
             fut = done_future()
         with self._optim_lock:
             self._optim_futures[unit_name] = fut
@@ -1595,6 +1963,17 @@ class OffloadSession:
             self._adam_abort(commits, resume_at=hi)
             raise
 
+    def _optim_unit_paged(self, unit_name: str, lo: int, hi: int,  # thread: optim-worker
+                          inv_scale: np.float32) -> None:
+        """Pipelined Adam for a paged-MoE unit, then expert-page
+        invalidation (the commit rewrote the unit's SSD compute copies)
+        BEFORE the readiness future resolves: the next step's fetch window
+        — and therefore every expert prestage or ensure for this unit —
+        gates on that future, so no page can be pinned while the
+        invalidation drops it."""
+        self._optim_unit_pipelined(unit_name, lo, hi, inv_scale)
+        self._expert_cache.invalidate_unit(unit_name)
+
     def _adam_abort(self, commits: list[Future], *, resume_at: int) -> None:  # thread: optim-worker
         """Failure path of a unit task: wait out this unit's commits (each
         releases its own buffer), release every issued-but-never-computed
@@ -1680,6 +2059,10 @@ class OffloadSession:
                 ("act_save_wait_s", "act_save_wait_seconds"),
                 ("act_fetch_wait_s", "act_fetch_wait_seconds"),
                 ("act_write_failures", "act_write_failures"),
+                # expert paging: executor stall at ExpertFetchOp gates
+                # (staged-stack waits, miss restages, on-demand fetches);
+                # the bytes and prestage gets / hits are in
+                # overlap_snapshot(), as in the reference
                 ("expert_fetch_wait_s", "expert_fetch_wait_seconds")):
             self.metrics[metric] = o1[counter] - o0[counter]
         return self.metrics

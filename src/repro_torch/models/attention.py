@@ -3,10 +3,12 @@
 Port of the GQA half of ``src/repro/models/attention.py``.  Activations are
 (batch, seq, ...) as in the reference; weights are plain dicts.
 
-* :func:`gqa_prefill` runs the prompt's causal self-attention through the
-  hand-written kernel (:func:`repro_torch.kernels.ops.swa_attention`): the
-  kernel takes (B, H, S, D), so q/k/v pass as transposed views and the
-  output comes back in the (B, S, H, D) layout, without copies.
+* :func:`gqa_prefill` runs the prompt's causal self-attention through
+  :func:`attention_scores`, as the reference's does: the cached prefill
+  and the uncached full-prefix pass compute one function, so their greedy
+  tokens agree bit for bit.  The hand-written kernel
+  (:func:`repro_torch.kernels.ops.swa_attention`, probabilities in fp32)
+  is reached at its entry point only, as the reference's Pallas kernel is.
 * :func:`gqa_step` is plain torch: no TPU kernel computes it.  It keeps the
   reference's ``chunk`` extent-invariance exactly.
 * :func:`gqa_verify` is the speculative-decode window: each position runs
@@ -17,8 +19,7 @@ Port of the GQA half of ``src/repro/models/attention.py``.  Activations are
   autograd, as the reference's training block runs its plain path (no
   TPU kernel has a backward).
 * :func:`attention_scores` is the reference's plain path (probabilities
-  cast to q's dtype before the PV product), also the comparison for the
-  kernel path.
+  cast to q's dtype before the PV product).
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops
 from .layers import apply_rope, dense, rms_norm, split_positions
 
 NEG_INF = -1e30
@@ -102,17 +102,18 @@ def gqa_attention(params, x, cfg, *, causal=True, window=None):
 
 
 def gqa_prefill(params, x, cfg, *, window=None):
-    """Causal prompt attention that also returns the pre-repeat K/V to
-    cache.  x may be right-padded past the true prompt length: causal
+    """Causal prompt attention through :func:`attention_scores` (the
+    function :func:`gqa_attention` computes) that also returns the
+    pre-repeat K/V to cache.  x may be right-padded past the true prompt length: causal
     masking keeps padded keys out of every valid query's softmax."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = gqa_project_qkv(params, x, cfg, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
     w = cfg.sliding_window if window is None else window
-    out = ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), window=w, causal=True)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return dense(out, params["attn.w_o"]), k, v
+    out = attention_scores(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                           causal=True, window=w)
+    return dense(out.reshape(b, s, -1), params["attn.w_o"]), k, v
 
 
 def gqa_step(params, x, cfg, k_cache, v_cache, cache_len, *, window=None,

@@ -2,9 +2,8 @@
 
 Port of the layer taxonomy, per-layer init, the FFN half and the
 full-sequence block of ``src/repro/models/transformer.py``, for the
-families this port runs:
-attention mixers with dense FFNs.  Other mixers (MLA, Mamba, xLSTM) and
-MoE FFNs raise and name the slice that brings them.
+families this port runs: attention mixers with dense or MoE FFNs.  Other
+mixers (MLA, Mamba, xLSTM) raise and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -16,10 +15,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from .attention import gqa_attention
 from .layers import fan_in_init, gated_mlp, rms_norm
+from .moe import moe_ffn
 
 LATER = ("is not ported yet: the PyTorch port runs attention mixers with "
-         "dense FFNs (MoE, MLA, Mamba and xLSTM come with the MoE and "
-         "model-zoo slices)")
+         "dense or MoE FFNs (MLA, Mamba and xLSTM come with the model-zoo "
+         "slices)")
 
 
 def mixer_kind(cfg: ModelConfig, layer: int) -> str:
@@ -48,13 +48,11 @@ def layer_period(cfg: ModelConfig) -> int:
 
 def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
                       layer: int, dtype=torch.float32) -> dict:
-    """Fresh parameters of one attention/dense layer, drawn from
-    ``generator`` in the reference's parameter order."""
+    """Fresh parameters of one attention layer with a dense or MoE FFN,
+    drawn from ``generator`` in the reference's parameter order."""
     mk, fk = mixer_kind(cfg, layer), ffn_kind(cfg, layer)
     if mk != "attn":
         raise NotImplementedError(f"mixer {mk!r} {LATER}")
-    if fk not in ("dense", "none"):
-        raise NotImplementedError(f"ffn {fk!r} {LATER}")
     d = cfg.d_model
     p: dict = {"norm_mixer": torch.zeros((d,), dtype=dtype),
                "attn.w_q": fan_in_init(generator, (d, cfg.q_dim), dtype),
@@ -64,22 +62,39 @@ def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
     if cfg.qk_norm:
         p["attn.q_norm"] = torch.zeros((cfg.head_dim,), dtype=dtype)
         p["attn.k_norm"] = torch.zeros((cfg.head_dim,), dtype=dtype)
-    if fk == "dense":
+    if fk != "none":
         p["norm_ffn"] = torch.zeros((d,), dtype=dtype)
+    if fk == "dense":
         if cfg.gated_act in ("swiglu", "geglu"):
             p["ffn.w_gate"] = fan_in_init(generator, (d, cfg.d_ff), dtype)
         p["ffn.w_up"] = fan_in_init(generator, (d, cfg.d_ff), dtype)
         p["ffn.w_down"] = fan_in_init(generator, (cfg.d_ff, d), dtype)
+    elif fk == "moe":
+        e = cfg.moe
+        p["moe.w_router"] = fan_in_init(generator, (d, e.n_experts), dtype)
+        for name in ("moe.w_gate", "moe.w_up"):
+            p[name] = fan_in_init(generator, (e.n_experts, d, e.d_ff_expert),
+                                  dtype)
+        p["moe.w_down"] = fan_in_init(generator,
+                                      (e.n_experts, e.d_ff_expert, d), dtype)
+        if e.n_shared:
+            f = e.n_shared * e.d_ff_expert
+            p["moe.shared_gate"] = fan_in_init(generator, (d, f), dtype)
+            p["moe.shared_up"] = fan_in_init(generator, (d, f), dtype)
+            p["moe.shared_down"] = fan_in_init(generator, (f, d), dtype)
     return p
 
 
 def apply_ffn(cfg: ModelConfig, fk: str, params, h):
-    """Pre-norm FFN residual half of a block (dense or none)."""
+    """Pre-norm FFN residual half of a block (dense, MoE or none); the MoE
+    auxiliary loss is dropped, as the reference's offloaded loss drops
+    it."""
     if fk == "none":
         return h
-    if fk != "dense":
-        raise NotImplementedError(f"ffn {fk!r} {LATER}")
     hn = rms_norm(h, params["norm_ffn"], cfg.rms_eps)
+    if fk == "moe":
+        out, _aux = moe_ffn(params, hn, cfg)
+        return h + out
     out = gated_mlp(hn, params["ffn.w_up"], params["ffn.w_down"],
                     cfg.gated_act, w_gate=params.get("ffn.w_gate"))
     return h + out
