@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--layers N] [--new-tokens N] [--train-layers N]
                           [--serve-layers N] [--moe-train-layers N]
-                          [--moe-layers N] [--seed S]
+                          [--moe-layers N] [--mla-layers N] [--seed S]
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -80,7 +80,32 @@ Phases (each raises on failure; the script exits non-zero):
    b. cached decode at ``--moe-layers`` depth: batch 4, 512-token
       prompts, 16 new tokens under ``"all"`` and ``"routed"``: equal
       tokens, the routed arm moving fewer expert bytes;
-10. print the ``kernels`` JSON line, the card line, and the result line.
+10. the device-resident path (``repro_torch.models.build``,
+    ``train.build_train_step``, ``serve.build_serve_step``):
+    a. resident training on the training phase's qwen3-4b model and
+       batch (``--train-layers`` depth, right after phase 6): three steps
+       of the launcher's loop (``resident_loop``: the train step, the
+       loss scaler, SGD at lr 1e-2) on fp32 masters holding the model's
+       bf16 weights; the loss falls, no step overflows, step 1 within rel
+       1e-3 of phase 6's offloaded step-1 loss on the same batch, one
+       overflow-kernel launch per gradient leaf a step (count zeroed just
+       before, read just after), then the kernel held to its plain
+       version on every leaf of one more step's gradients;
+    b. resident MLA decode, deepseek-v3 at full width, ``--mla-layers``
+       depth plus its MTP block, drawn on the card in bf16: batch 2, a
+       64-token prompt through the latent cache, 16 greedy tokens (bf16
+       compute), then a teacher-forced audit at fp32 compute over the
+       same bf16 weights: the serve step's logits at all 79 positions
+       within rtol = atol = 2e-3 of ``prefill_fn``'s (the reference's own
+       decode-vs-forward bound, router capacity 16 as it sets it); the
+       bf16 gap is printed beside it;
+    c. offloaded MLA uncached decode, the same width and depth, from bf16
+       host units: ``generate(use_cache=False)`` of 4 tokens after a
+       32-token prompt, batch 1, under ``expert_paging="all"`` and then
+       ``"routed"`` (768 host expert pages each, each arm's store dropped
+       after it): equal tokens, the routed arm moving fewer expert
+       bytes;
+11. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
@@ -93,6 +118,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import resource
 import shutil
 import statistics
 import subprocess
@@ -108,10 +134,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import (DecodeSpec, OffloadPolicy,  # noqa: E402
                               OffloadSession)
 from repro_torch.core import overflow as host_overflow  # noqa: E402
 from repro_torch.core.dtypes import cast_host, to_torch  # noqa: E402
+from repro_torch.core.loss_scale import DynamicLossScaler  # noqa: E402
 from repro_torch.core.model_adapter import make_offloadable_lm  # noqa: E402
 from repro_torch.core.nvme import DirectNVMeEngine  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -121,8 +149,15 @@ from repro_torch.kernels.overflow_check import (  # noqa: E402
     overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     attention_path, swa_attention_cuda, swa_attention_plain)
+from repro_torch.launch.train import resident_loop  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    from_numpy_params, init_params)
 from repro_torch.serve import (OffloadedDecoder, Request,  # noqa: E402
-                               RequestState, ServingEngine, SpecConfig)
+                               RequestState, ServingEngine, SpecConfig,
+                               build_serve_step)
+from repro_torch.train import build_train_step  # noqa: E402
+from repro_torch.train.step import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
@@ -1544,6 +1579,359 @@ def run_moe_decode(args, workdir: str) -> dict:
     return out
 
 
+# -- phase 10: the device-resident path ----------------------------------------
+
+RESIDENT_STEPS = 3
+# SGD lr of the resident loop (the launcher's loop is plain SGD on fp32
+# masters): large enough that three steps on one batch lower the loss far
+# past the bf16 compute's noise on it (on an H100 at 4 layers it fell
+# 12.30 -> 11.48 -> 10.71), so "the loss falls" is a real check
+RESIDENT_LR = 1e-2
+
+
+def _resident_tree(cfg, model, device):
+    """The offloaded model's weights as the resident tree: blocks stacked
+    into one period group, each weight rounded to bf16 (the offloaded
+    session's compute weights) and held in fp32 (the resident path's
+    masters, as the launcher's loop keeps them)."""
+    blocks = [u.params for u in model.units[1:-1]]
+    tree = {"embed": model.units[0].params["embed"],
+            "final_norm": model.units[-1].params["final_norm"],
+            "groups": [{k: np.stack([b[k] for b in blocks])
+                        for k in blocks[0]}]}
+    if not cfg.tie_embeddings:
+        tree["head"] = model.units[-1].params["head"]
+    params = from_numpy_params(cfg, tree, torch.bfloat16, device)
+    return tree_map(lambda t: t.float(), params)
+
+
+def run_resident_train(host_run: dict, device: str = "cuda") -> dict:
+    """Three steps of the launcher's resident loop (build_train_step, the
+    loss scaler, SGD) on the training phase's qwen3-4b model and batch,
+    held to that phase's offloaded step-1 loss on the same bf16
+    weights."""
+    model = host_run["model"]
+    tokens, labels = host_run["tokens"], host_run["labels"]
+    offloaded_loss = host_run["losses"][0]
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              n_layers=len(model.units) - 2)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    print(f"resident training: {cfg.name} depth {cfg.n_layers} of 36 (the "
+          f"training phase's model and batch, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}), {RESIDENT_STEPS} SGD steps at lr "
+          f"{RESIDENT_LR:g}; {n_params} parameters in the offloaded units")
+    dev = torch.device(device)
+    params = _resident_tree(cfg, model, dev)
+    n_leaves = len(tree_leaves(params))
+    impl = build(cfg, device=dev)
+    step = build_train_step(impl)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    scaler = DynamicLossScaler(scale=1.0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, flags, walls = [], [], []
+    clock = [time.perf_counter()]
+
+    def on_step(i, loss, overflowed):
+        _sync(device)
+        walls.append(time.perf_counter() - clock[0])
+        losses.append(float(loss))
+        flags.append(overflowed)
+        clock[0] = time.perf_counter()
+
+    _sync(device)
+    overflow_flag_cuda_.launches = 0
+    clock[0] = time.perf_counter()
+    params = resident_loop(step, params, [batch] * RESIDENT_STEPS,
+                           lr=RESIDENT_LR, scaler=scaler, on_step=on_step)
+    launches = overflow_flag_cuda_.launches
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+    # the kernel against its plain version on every gradient leaf of one
+    # more step (these launches are not the path's)
+    _loss, grads, overflow = step(params, batch, scaler.scale)
+    leaves = tree_leaves(grads)
+    if dev.type == "cuda":
+        for g in leaves:
+            _ov_agree(g.contiguous(), expect=False)
+        g = leaves[-1].clone()
+        g.view(-1)[-1] = float("inf")
+        _ov_agree(g, expect=True)
+    del grads, leaves, params
+    loss_rel = abs(losses[0] - offloaded_loss) / abs(offloaded_loss)
+    out = {"resident_layers": cfg.n_layers, "losses": losses,
+           "overflowed": flags, "step_s": walls,
+           "offloaded_step1_loss": offloaded_loss, "loss_rel_diff": loss_rel,
+           "gradient_leaves": n_leaves, "overflow_launches": launches,
+           "max_memory_allocated": peak}
+    for k, v in out.items():
+        print(f"  {k}: {v}")
+    if any(flags) or bool(overflow):
+        raise AssertionError(f"a clean resident step overflowed: {flags}")
+    if not (np.isfinite(losses).all() and losses[0] > losses[1] > losses[2]):
+        raise AssertionError(f"resident losses {losses} do not fall")
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"resident step-1 loss {losses[0]} differs "
+                             f"from the offloaded {offloaded_loss}: "
+                             f"{loss_rel}")
+    # one screen launch per gradient leaf a step, on the card
+    if device == "cuda" and launches != n_leaves * RESIDENT_STEPS:
+        raise AssertionError(f"overflow_check launched {launches} times "
+                             f"for {n_leaves} leaves x {RESIDENT_STEPS} "
+                             f"steps")
+    return out
+
+
+# -- phase 11: resident MLA decode ---------------------------------------------
+
+MLA_BATCH, MLA_PROMPT, MLA_NEW = 2, 64, 16
+# the teacher-forced audit's router capacity, as the reference's own
+# decode-vs-forward test sets it: the prefill drops over-capacity tokens
+# and decode never does, a semantic difference, not a cache fault
+MLA_CAPACITY = 16.0
+# the audit's bound, the reference's own (tests/test_consistency_extra.py,
+# rtol = atol = 2e-3), at fp32 compute over the same bf16 weights: at
+# bf16 compute the router's logits are bf16, a one-ULP difference between
+# the (B, 1) and (B, S) products reorders a near-tie of the 8th and 9th
+# of 256 experts for a few of 158 tokens, and a swapped expert moves that
+# row's logits by ~10 % of its max (0.115, with 95.6 % argmax agreement,
+# on an H100 at 1 layer); at fp32 such a tie needs a ~1e-7 gap
+MLA_TOL = 2e-3
+
+
+def _mla_config(n_layers: int, capacity: float | None = None):
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              n_layers=n_layers)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity))
+    return cfg
+
+
+def _teacher_forced(impl, params, seq, cache_dtype):
+    """Logits of one serve step per position of ``seq`` (B, T) through the
+    latent cache, and prefill_fn's over all of ``seq``: (B, T, V) each, on
+    the host."""
+    serve, _specs = build_serve_step(impl, InputShape(
+        "mla_audit", seq.shape[1], seq.shape[0], "decode"),
+        cache_dtype=cache_dtype)
+    cache = impl.init_cache(seq.shape[0], seq.shape[1], dtype=cache_dtype)
+    steps = []
+    for t in range(seq.shape[1]):
+        logits, cache = serve(params, cache, seq[:, t:t + 1], t)
+        steps.append(logits[:, 0].float().cpu())
+    del cache
+    with torch.no_grad():
+        full = impl.prefill_fn(params, {"tokens": seq}).float().cpu()
+    return torch.stack(steps, dim=1).numpy(), full.numpy()
+
+
+def run_mla_decode(args, device: str = "cuda") -> dict:
+    """Greedy decode of deepseek-v3 at full width through build_serve_step
+    with the latent cache (bf16), then the logits at every position of
+    the same tokens held against prefill_fn's (teacher-forced), at fp32
+    compute over the same bf16 weights."""
+    cfg = _mla_config(args.mla_layers, MLA_CAPACITY)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+    params = init_params(gen, cfg, torch.bfloat16)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    impl = build(cfg, device=dev)
+    max_seq = MLA_PROMPT + MLA_NEW
+    serve, _specs = build_serve_step(impl, InputShape(
+        "mla_decode", max_seq, MLA_BATCH, "decode"))
+    prompts = torch.from_numpy(np.random.default_rng(args.seed + 7).integers(
+        0, cfg.vocab, size=(MLA_BATCH, MLA_PROMPT), dtype=np.int64)).to(dev)
+    print(f"resident MLA decode: {cfg.name} d_model {cfg.d_model} heads "
+          f"{cfg.n_heads} MLA q/kv ranks {cfg.mla.q_lora_rank}/"
+          f"{cfg.mla.kv_lora_rank}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k}, vocab {cfg.vocab}, depth {cfg.n_layers} of 61 "
+          f"(--mla-layers) + MTP, {n_params} parameters "
+          f"({2 * n_params / 1e9:.2f} GB bf16, drawn in {init_s:.1f} s); "
+          f"batch {MLA_BATCH}, prompt {MLA_PROMPT}, {MLA_NEW} new tokens, "
+          f"router capacity {MLA_CAPACITY:g}")
+    with torch.no_grad():
+        _sync(device)
+        t1 = time.perf_counter()
+        impl.prefill_fn(params, {"tokens": prompts})
+        _sync(device)
+        prefill_s = time.perf_counter() - t1
+    cache = impl.init_cache(MLA_BATCH, max_seq)
+    cache_bytes = sum(v.numel() * v.element_size() for c in cache
+                      for v in c.values())
+    per_token_layer = cache_bytes / (MLA_BATCH * max_seq * cfg.n_layers)
+    steps = []
+    for t in range(MLA_PROMPT):          # the prompt through the cache
+        logits, cache = serve(params, cache, prompts[:, t:t + 1], t)
+        steps.append(logits[:, 0])
+    nxt = logits[:, 0].argmax(-1)
+    new = [nxt]
+    _sync(device)
+    t2 = time.perf_counter()
+    for i in range(MLA_NEW - 1):
+        logits, cache = serve(params, cache, nxt[:, None], MLA_PROMPT + i)
+        steps.append(logits[:, 0])
+        nxt = logits[:, 0].argmax(-1)
+        new.append(nxt)
+    _sync(device)
+    per_token_ms = 1e3 * (time.perf_counter() - t2) / (MLA_NEW - 1)
+    dec16 = torch.stack(steps, dim=1).float().cpu().numpy()
+    del cache, steps
+    seq = torch.cat([prompts, torch.stack(new[:-1], dim=1)], dim=1)
+    with torch.no_grad():
+        full16 = impl.prefill_fn(params, {"tokens": seq}).float().cpu() \
+            .numpy()
+    t3 = time.perf_counter()
+    dec, full = _teacher_forced(
+        build(cfg, compute_dtype=torch.float32, device=dev), params, seq,
+        torch.float32)
+    audit_s = time.perf_counter() - t3
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    del params
+
+    def row_gap(a, b):
+        return float((np.abs(a - b) / np.maximum(
+            np.abs(b).max(-1, keepdims=True), 1.0)).max())
+
+    excess = float((np.abs(dec - full) - (MLA_TOL + MLA_TOL
+                                          * np.abs(full))).max())
+    tokens = torch.stack(new, dim=1).cpu().numpy()
+    out = {"mla_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+           "prefill_s": prefill_s, "per_token_ms": per_token_ms,
+           "fp32_teacher_forced_gap": row_gap(dec, full),
+           "fp32_max_abs_diff": float(np.abs(dec - full).max()),
+           "fp32_argmax_agreement": float(
+               (dec.argmax(-1) == full.argmax(-1)).mean()),
+           "bf16_teacher_forced_gap": row_gap(dec16, full16),
+           "bf16_argmax_agreement": float(
+               (dec16.argmax(-1) == full16.argmax(-1)).mean()),
+           "audit_s": audit_s,
+           "cache_bytes_per_token_layer": per_token_layer,
+           "max_memory_allocated": peak}
+    for k, v in out.items():
+        print(f"  {k}: {v}")
+    print(f"  fp32 decode vs prefill_fn at {dec.shape[1]} positions "
+          f"(capacity {MLA_CAPACITY:g}): max |diff| "
+          f"{out['fp32_max_abs_diff']:.3e}, row-scaled gap "
+          f"{out['fp32_teacher_forced_gap']:.3e} (tol rtol = atol = "
+          f"{MLA_TOL:g}); bf16 row-scaled gap "
+          f"{out['bf16_teacher_forced_gap']:.3e}, argmax agreement "
+          f"{out['bf16_argmax_agreement']:.3f}")
+    if tokens.shape != (MLA_BATCH, MLA_NEW) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab or not np.isfinite(dec16).all():
+        raise AssertionError(f"bad MLA decode output {tokens.shape}")
+    if per_token_layer != 2 * (cfg.mla.kv_lora_rank
+                               + cfg.mla.qk_rope_head_dim):
+        raise AssertionError(f"latent cache {per_token_layer} B a token a "
+                             f"layer")
+    if not excess <= 0:
+        raise AssertionError(f"fp32 MLA decode logits differ from "
+                             f"prefill_fn's past rtol = atol = {MLA_TOL}")
+    return out
+
+
+# -- phase 12: offloaded MLA uncached decode with expert paging ----------------
+
+MLA_U_PROMPT, MLA_U_NEW = 32, 4
+# host expert-page budget: one layer's 256 experts x 3 tensors (22.5 GB of
+# bf16 pages), so neither arm refills a page within a pass
+MLA_PAGE_SLOTS = 768
+
+
+def _mem_total() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _max_rss() -> int:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def run_mla_uncached(args, workdir: str) -> dict:
+    """Uncached greedy decode of deepseek-v3 at full width through the
+    SSD-offloaded session under expert_paging "all", then "routed", each
+    arm on its own bf16 store (dropped after it)."""
+    cfg = _mla_config(args.mla_layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 8)
+    # serving only: bf16 host units (26.7 GB, against 53.4 GB of fp32
+    # masters, which with the 22.5 GB page cache took the process to 101
+    # GB of an H100 host's 108 GB)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device="cuda",
+                                expert_paging="routed", host_dtype="bfloat16")
+    draw_s = time.perf_counter() - t0
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    prompts = np.random.default_rng(args.seed + 8).integers(
+        0, cfg.vocab, size=(1, MLA_U_PROMPT), dtype=np.int64)
+    capacity = -(-(2 * n_params) // 2) + (256 << 20)
+    free = shutil.disk_usage(workdir).free
+    print(f"offloaded MLA uncached decode: {cfg.name} depth {cfg.n_layers} "
+          f"of 61, {n_params} parameters ({2 * n_params / 1e9:.2f} GB of "
+          f"bf16 host units drawn in {draw_s:.1f} s, the same bytes in a "
+          f"store an arm), batch 1, prompt {MLA_U_PROMPT}, {MLA_U_NEW} new "
+          f"tokens, {MLA_PAGE_SLOTS} expert pages of host budget; MemTotal "
+          f"{_mem_total()} B, free disk {free / 1e9:.1f} GB, max RSS so "
+          f"far {_max_rss()} B")
+    if free < 2 * n_params + (2 << 30):
+        raise RuntimeError(f"not enough disk for the MLA store: {free} B")
+    arms = {}
+    for mode in ("all", "routed"):
+        root = os.path.join(workdir, f"mla_serve_{mode}")
+        policy = (OffloadPolicy.preset("memascend")
+                  .with_expert_paging(mode, page_slots=MLA_PAGE_SLOTS)
+                  .with_store(factory=lambda root=root: DirectNVMeEngine(
+                      root, n_devices=2, device_capacity=capacity))
+                  .build())
+        t0 = time.perf_counter()
+        with OffloadedDecoder(model, policy) as dec:
+            setup_s = time.perf_counter() - t0
+            s = dec.session
+            o0 = s.overlap_snapshot()
+            t1 = time.perf_counter()
+            tokens = dec.generate(prompts, MLA_U_NEW, use_cache=False)
+            torch.cuda.synchronize()
+            generate_s = time.perf_counter() - t1
+            o1 = s.overlap_snapshot()
+            arms[mode] = {"setup_s": setup_s, "generate_s": generate_s,
+                          "tokens": tokens, **_expert_counters(o0, o1),
+                          "expert_fetch_wait_s":
+                              o1["expert_fetch_wait_seconds"]
+                              - o0["expert_fetch_wait_seconds"],
+                          "peak_host_bytes": s.tracker.peak_allocated,
+                          "max_rss_bytes": _max_rss(),
+                          "expert_cache": s.expert_cache_stats()}
+        shutil.rmtree(root, ignore_errors=True)
+        print(f"  {mode}: " + str({k: v for k, v in arms[mode].items()
+                                   if k != "tokens"}))
+    del model
+    toks = [arms[m].pop("tokens") for m in ("all", "routed")]
+    ratio = arms["routed"]["expert_fetch_bytes"] / \
+        arms["all"]["expert_fetch_bytes"]
+    out = {"mla_layers": cfg.n_layers, "params": n_params, "draw_s": draw_s,
+           "arms": arms, "routed_over_all_bytes": ratio,
+           "tokens_equal": bool(np.array_equal(*toks)),
+           "mem_total_bytes": _mem_total()}
+    print(f"  tokens equal: {out['tokens_equal']}; expert bytes routed/all "
+          f"{ratio:.4f}")
+    if toks[0].shape != (1, MLA_U_NEW) or not (0 <= toks[0]).all() or \
+            not (toks[0] < cfg.vocab).all():
+        raise AssertionError(f"bad MLA tokens {toks[0].shape}")
+    if not out["tokens_equal"]:
+        raise AssertionError(f"routed MLA tokens {toks[1]} differ from "
+                             f"all-resident {toks[0]}")
+    if not 0 < ratio < 1:
+        raise AssertionError(f"routed MLA decode moved {ratio} of the "
+                             f"all-resident expert bytes")
+    return out
+
+
 def _device_busy_ms(prof) -> tuple[float, list]:
     """Device-side events only (kernels and copies): the host ops that
     launched them carry the same time again."""
@@ -1554,23 +1942,26 @@ def _device_busy_ms(prof) -> tuple[float, list]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=4,
+    ap.add_argument("--layers", type=int, default=2,
                     help="qwen3-4b depth (the full model has 36)")
-    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--train-layers", type=int, default=3,
                     help="qwen3-4b depth of the training phase")
-    ap.add_argument("--serve-layers", type=int, default=2,
+    ap.add_argument("--serve-layers", type=int, default=1,
                     help="qwen3-4b depth of the serving-breadth phases")
     ap.add_argument("--moe-train-layers", type=int, default=1,
                     help="qwen3-30b-a3b depth of the MoE training phase "
                          "(the full model has 48)")
-    ap.add_argument("--moe-layers", type=int, default=2,
+    ap.add_argument("--moe-layers", type=int, default=1,
                     help="qwen3-30b-a3b depth of the MoE decode phase")
+    ap.add_argument("--mla-layers", type=int, default=1,
+                    help="deepseek-v3-671b depth of the MLA phases (the "
+                         "full model has 61)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.new_tokens < 3 or min(args.layers, args.train_layers,
                                   args.serve_layers, args.moe_train_layers,
-                                  args.moe_layers) < 1:
+                                  args.moe_layers, args.mla_layers) < 1:
         ap.error("needs --new-tokens >= 3 and every --*layers >= 1")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -1579,6 +1970,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(card)
+    print(f"host MemTotal {_mem_total()} B")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 checks in fp32
@@ -1652,8 +2044,12 @@ def main() -> int:
         phase_s["training"] = time.perf_counter() - t
         t = time.perf_counter()
         run_act_tiers(workdir, host_run)
-        del host_run
         phase_s["activation_tiers"] = time.perf_counter() - t
+        t = time.perf_counter()
+        resident = run_resident_train(host_run)
+        del host_run
+        torch.cuda.empty_cache()
+        phase_s["resident_training"] = time.perf_counter() - t
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_moe_") as workdir:
         t = time.perf_counter()
@@ -1663,6 +2059,15 @@ def main() -> int:
         t = time.perf_counter()
         run_moe_decode(args, workdir)
         phase_s["moe_decode"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_mla_") as workdir:
+        t = time.perf_counter()
+        run_mla_decode(args)
+        torch.cuda.empty_cache()
+        phase_s["mla_resident_decode"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run_mla_uncached(args, workdir)
+        phase_s["mla_offloaded_uncached"] = time.perf_counter() - t
     print(f"phase seconds: {phase_s}")
 
     kernels = [{
@@ -1681,7 +2086,8 @@ def main() -> int:
         "launches": train["overflow_launches"], "max_abs_err": ov_err,
         **ov_timing, "moe_launches": {
             m: a["overflow_launches"]
-            for m, a in moe_train["arms"].items()}}, {
+            for m, a in moe_train["arms"].items()},
+        "resident_launches": resident["overflow_launches"]}, {
         "name": "fused_adam", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_adam.cu",
         "replaces": "src/repro/kernels/fused_adam.py:72",

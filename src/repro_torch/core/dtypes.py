@@ -54,7 +54,13 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 def cast_host(values: np.ndarray, name: str) -> np.ndarray:
     """Round an fp32 host array to the host form of dtype ``name`` (bf16
-    rounds to nearest even, as ``ml_dtypes`` and torch do)."""
+    rounds to nearest even, as ``ml_dtypes`` and torch do).  bf16 bits
+    (``uint16``) come back as they are for ``"bfloat16"`` and widen
+    exactly otherwise."""
+    if values.dtype == BF16_HOST:
+        if name == "bfloat16":
+            return values
+        values = bf16_to_f32_(values, np.empty(values.shape, np.float32))
     if name == "bfloat16":
         values = np.ascontiguousarray(values, np.float32)
         if not values.flags.writeable:     # torch wants a writable buffer

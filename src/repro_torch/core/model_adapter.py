@@ -5,8 +5,12 @@ Port of ``src/repro/core/model_adapter.py``.  The session streams
 *unstacked* per-block parameter dicts (one block on the device at a time);
 this adapter builds them and wires the applies the session runs per unit.
 Restrictions, as in the reference: the config must be layer-homogeneous
-(period 1).  This port covers attention mixers with dense or MoE FFNs;
-other mixers raise and name the slice that brings them.
+(period 1).  This port covers attention and MLA mixers with dense or MoE
+FFNs; other mixers raise and name the slice that brings them.  The
+cached-decode applies (``block_prefill`` / ``block_step`` /
+``block_verify``, ``kv_shape``) exist for attention mixers only, as in the
+reference: an MLA model trains and runs uncached decode, and a
+``DecodeSpec`` session over it raises.
 
 Expert paging (``expert_paging="all" | "routed"``) splits each MoE block's
 stacked ``(E, ...)`` expert tensors into per-expert params
@@ -18,8 +22,10 @@ autograd with the routing pinned), plus the cached-decode route variants.
 
 Two ways in, one set of applies:
 
-* :func:`make_offloadable_lm` draws fresh fp32 weights from a
-  ``torch.Generator`` (or a seed),
+* :func:`make_offloadable_lm` draws fresh weights from a
+  ``torch.Generator`` (or a seed), one tensor at a time, each moved to
+  the host as soon as it is drawn (fp32 masters, or bf16 bits for a
+  serving-only model),
 * :func:`from_numpy_units` takes existing units by duck type (``.name``,
   ``.kind``, ``.params`` of numpy arrays) — the reference package's
   ``make_offloadable_lm`` emits exactly these, so both packages can start
@@ -35,27 +41,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (gqa_attention, gqa_prefill,
-                                          gqa_step, gqa_verify)
+                                          gqa_step, gqa_verify,
+                                          mla_attention)
 from repro_torch.models.layers import (cross_entropy, dense, embed_lookup,
-                                       fan_in_init, lm_logits, rms_norm,
+                                       fan_in_init, lm_logits,
+                                       resolve_device, rms_norm,
                                        split_positions, trunc_normal)
 from repro_torch.models.moe import moe_ffn, ordered_top_k
 from repro_torch.models.transformer import (LATER, apply_ffn, apply_layer,
                                             ffn_kind, init_layer_params,
                                             layer_period, mixer_kind)
+from .dtypes import to_host, torch_dtype
 from .offload_engine import OffloadableModel, OffloadUnit
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; asking for CUDA without a card
-    raises (the port never drops to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but torch.cuda is not "
-                           f"available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _kinds(cfg: ModelConfig) -> tuple[str, str]:
@@ -64,7 +61,7 @@ def _kinds(cfg: ModelConfig) -> tuple[str, str]:
             f"{cfg.name}: offloaded models require layer-homogeneous "
             f"configs (period==1); got period={layer_period(cfg)}")
     kinds = (mixer_kind(cfg, 0), ffn_kind(cfg, 0))
-    if kinds[0] != "attn":
+    if kinds[0] not in ("attn", "mla"):
         raise NotImplementedError(f"{cfg.name}: mixer {kinds[0]!r} {LATER}")
     return kinds
 
@@ -101,13 +98,18 @@ def _expert_meta(cfg: ModelConfig, units) -> dict | None:
 def make_offloadable_lm(cfg: ModelConfig, generator_or_seed,
                         compute_dtype=torch.bfloat16, *,
                         device="cuda",
-                        expert_paging: str = "off") -> OffloadableModel:
-    """Fresh fp32 units drawn from ``generator_or_seed`` (a
+                        expert_paging: str = "off",
+                        host_dtype: str = "float32") -> OffloadableModel:
+    """Fresh units drawn from ``generator_or_seed`` (a
     ``torch.Generator``, or an int seeding a CPU generator), with the
     applies running in ``compute_dtype`` on ``device``.  With
     ``expert_paging`` "all" or "routed" each MoE block's expert stacks
     are split into per-expert pages (the policy's ``expert_paging`` must
-    then name the same residency family)."""
+    then name the same residency family).  ``host_dtype="float32"`` keeps
+    the units as fp32 masters (training and serving);
+    ``"bfloat16"`` rounds each drawn tensor to bf16 bits on its way to
+    the host, half the host memory, for serving only (a train session
+    refuses them)."""
     kinds = _kinds(cfg)
     if expert_paging not in ("off", "all", "routed"):
         raise ValueError(f"expert_paging must be 'off'|'all'|'routed', got "
@@ -121,18 +123,21 @@ def make_offloadable_lm(cfg: ModelConfig, generator_or_seed,
     else:
         gen = torch.Generator().manual_seed(int(generator_or_seed))
 
+    if host_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"host_dtype must be 'float32'|'bfloat16', got "
+                         f"{host_dtype!r}")
+
     def host(t: torch.Tensor) -> np.ndarray:
-        return t.cpu().numpy()
+        return to_host(t.to(torch_dtype(host_dtype)))
 
     units = [OffloadUnit("embed", "standalone", {
         "embed": host(trunc_normal(gen, (cfg.vocab, cfg.d_model), 0.02))})]
     for i in range(cfg.n_layers):
-        params = {k: host(v) for k, v in
-                  init_layer_params(gen, cfg, i).items()}
+        params = init_layer_params(gen, cfg, i, place=host)
         if expert_paging != "off":
             params = _split_experts(cfg, params)
         units.append(OffloadUnit(f"block_{i:03d}", "block", params))
-    head_params = {"final_norm": np.zeros((cfg.d_model,), np.float32)}
+    head_params = {"final_norm": host(torch.zeros(cfg.d_model))}
     # tied embeddings share the table; an untied head projects its own
     head_params["head"] = (
         units[0].params["embed"].T.copy() if cfg.tie_embeddings
@@ -158,7 +163,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                             scale=cfg.embed_scale)
 
     def block_apply(params, h):
-        return apply_layer(cfg, kinds, params, h)
+        return apply_layer(cfg, kinds, params, h)[0]
 
     def head_logits(params, h):
         h = rms_norm(h, params["final_norm"].to(compute_dtype), cfg.rms_eps)
@@ -170,7 +175,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
     def block_prefill(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
         mix, k, v = gqa_prefill(params, hn, cfg)
-        return apply_ffn(cfg, kinds[1], params, h + mix), k, v
+        return apply_ffn(cfg, kinds[1], params, h + mix)[0], k, v
 
     def block_step(params, h, k_cache, v_cache, cache_len, *, chunk=None):
         # ``chunk`` keeps the attention reductions extent-invariant — see
@@ -178,7 +183,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
         mix, k_new, v_new = gqa_step(params, hn, cfg, k_cache, v_cache,
                                      cache_len, chunk=chunk)
-        return apply_ffn(cfg, kinds[1], params, h + mix), k_new, v_new
+        return apply_ffn(cfg, kinds[1], params, h + mix)[0], k_new, v_new
 
     def block_verify(params, h, k_cache, v_cache, cache_len, *,
                      chunk=None):
@@ -190,25 +195,31 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                         for c in cols], dim=1)
         mix, k_new, v_new = gqa_verify(params, hn, cfg, k_cache, v_cache,
                                        cache_len, chunk=chunk)
-        out = [apply_ffn(cfg, kinds[1], params, c + m)
+        out = [apply_ffn(cfg, kinds[1], params, c + m)[0]
                for c, m in zip(cols, split_positions(mix), strict=True)]
         return torch.cat(out, dim=1), k_new, v_new
 
     def kv_shape(batch: int, time: int) -> tuple:
         return (2, batch, time, cfg.n_kv_heads, cfg.head_dim)
 
-    paged = {} if expert_meta is None else _paged_applies(cfg)
+    applies = dict(block_prefill=block_prefill, block_step=block_step,
+                   block_verify=block_verify, kv_shape=kv_shape)
+    if expert_meta is not None:
+        applies.update(_paged_applies(cfg, kinds[0]))
+    if kinds[0] != "attn":
+        # cached decode takes attention mixers only, as in the reference
+        # (its MLA latent cache is the resident model's): keep the applies
+        # of the train and uncached paths
+        applies = {k: v for k, v in applies.items()
+                   if k in ("block_route", "block_moe", "block_moe_bwd")}
     return OffloadableModel(units=own, embed_apply=embed_apply,
                             class_of=ModelConfig.class_of_param, device=dev,
                             block_apply=block_apply, head_loss=head_loss,
-                            head_logits=head_logits,
-                            block_prefill=block_prefill,
-                            block_step=block_step, block_verify=block_verify,
-                            kv_shape=kv_shape, expert_meta=expert_meta,
-                            **paged)
+                            head_logits=head_logits, expert_meta=expert_meta,
+                            **applies)
 
 
-def _paged_applies(cfg: ModelConfig) -> dict:
+def _paged_applies(cfg: ModelConfig, mk: str) -> dict:
     """The expert-paged applies of a MoE block: a routing half (the mixer
     and the router's top-k, whose indices the host reads back to decide
     which expert pages to fetch) and an expert half (the routed FFN over
@@ -228,6 +239,8 @@ def _paged_applies(cfg: ModelConfig) -> dict:
 
     def mixer_half(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
+        if mk == "mla":
+            return h + mla_attention(params, hn, cfg)
         return h + gqa_attention(params, hn, cfg)
 
     def block_route(params, h):

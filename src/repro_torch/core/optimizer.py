@@ -260,6 +260,9 @@ class OffloadedAdam:
 
     def register(self, key: str, init_value: np.ndarray) -> None:  # thread: executor
         """Seed master weights + zero moments on the store; emit compute copy."""
+        if init_value.dtype == BF16_HOST:
+            raise TypeError(f"{key}: bf16 host units (uint16 bits) carry no "
+                            f"fp32 master; train from fp32 units")
         sd = self.cfg.state_np_dtype
         meta = SubgroupMeta(key, init_value.shape, init_value.size)
         self.subgroups[key] = meta

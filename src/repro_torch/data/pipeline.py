@@ -7,8 +7,8 @@ external corpora: a seeded Markov-ish token generator with document
 boundaries, packed into fixed-length training sequences (labels shifted,
 cross-document positions masked with -100), with per-process sharding for
 data parallelism.  Deterministic given (seed, step) so multi-host shards
-never overlap and runs are reproducible.  (``make_batch_specs``, the pjit
-path's shape specs, comes with the non-offloaded path.)
+never overlap and runs are reproducible.  ``make_batch_specs`` gives the
+resident train step's batch shapes.
 """
 
 from __future__ import annotations
@@ -78,3 +78,12 @@ class DataLoader:
         return {"tokens": np.ascontiguousarray(tokens),
                 "labels": np.ascontiguousarray(labels)}
 
+
+
+def make_batch_specs(batch: int, seq_len: int):
+    """The (tokens, labels) batch as :class:`~repro_torch.models.registry.
+    TensorSpec` records (shape, dtype), allocation-free."""
+    import torch
+    from repro_torch.models.registry import TensorSpec
+    return {"tokens": TensorSpec((batch, seq_len), torch.int32),
+            "labels": TensorSpec((batch, seq_len), torch.int32)}

@@ -1,7 +1,9 @@
-"""GQA attention (optionally qk-norm) for cached decode on torch tensors.
+"""GQA (optionally qk-norm, sliding-window, bidirectional-prefix) and MLA
+attention on torch tensors.
 
-Port of the GQA half of ``src/repro/models/attention.py``.  Activations are
-(batch, seq, ...) as in the reference; weights are plain dicts.
+Port of ``src/repro/models/attention.py`` less ``cross_attention``
+(whisper's, a later slice).  Activations are (batch, seq, ...) as in the
+reference; weights are plain dicts.
 
 * :func:`gqa_prefill` runs the prompt's causal self-attention through
   :func:`attention_scores`, as the reference's does: the cached prefill
@@ -20,6 +22,12 @@ Port of the GQA half of ``src/repro/models/attention.py``.  Activations are
   TPU kernel has a backward).
 * :func:`attention_scores` is the reference's plain path (probabilities
   cast to q's dtype before the PV product).
+* :func:`gqa_decode` and :func:`mla_decode` are the device-resident
+  model's one-token steps against its own cache tree; the cache comes back
+  as a new tensor (an out-of-place slot write), never mutated under the
+  caller.
+* MLA (DeepSeek-V3): :func:`mla_project_q`, :func:`mla_compress_kv` (the
+  cached latent), :func:`mla_expand_kv` and :func:`mla_attention`.
 """
 
 from __future__ import annotations
@@ -53,11 +61,12 @@ def _scores(q, k):
 
 
 def attention_scores(q, k, v, *, causal: bool, window: int = 0,
-                     q_offset=0):
+                     q_offset=0, prefix_len: int = 0):
     """Plain softmax attention over full (or banded) scores.
 
     q: (B, Sq, H, D); k, v: (B, Sk, H, D); ``q_offset`` is the absolute
-    position of q[0]."""
+    position of q[0].  ``prefix_len`` marks a bidirectional prefix
+    (PaliGemma): positions < prefix_len attend freely among themselves."""
     _b, sq, _h, d = q.shape
     sk = k.shape[1]
     scores = _scores(q, k) / math.sqrt(d)
@@ -66,6 +75,10 @@ def attention_scores(q, k, v, *, causal: bool, window: int = 0,
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask = k_pos[None, :] <= q_pos[:, None]
+        if prefix_len:
+            in_prefix = (q_pos[:, None] < prefix_len) & \
+                (k_pos[None, :] < prefix_len)
+            mask = mask | in_prefix
     if window:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
     scores = torch.where(mask, scores, _neg_inf(q.device))
@@ -89,7 +102,8 @@ def gqa_project_qkv(params, x, cfg, positions):
     return q, k, v
 
 
-def gqa_attention(params, x, cfg, *, causal=True, window=None):
+def gqa_attention(params, x, cfg, *, causal=True, window=None,
+                  prefix_len: int = 0):
     """Full-sequence GQA attention (training), plain torch."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -97,8 +111,68 @@ def gqa_attention(params, x, cfg, *, causal=True, window=None):
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     w = cfg.sliding_window if window is None else window
-    out = attention_scores(q, k, v, causal=causal, window=w)
+    out = attention_scores(q, k, v, causal=causal, window=w,
+                           prefix_len=prefix_len)
     return dense(out.reshape(b, s, -1), params["attn.w_o"])
+
+
+def _einsum(eq, a, b):
+    """``torch.einsum`` with jnp's promotion of mixed float operands."""
+    if a.dtype != b.dtype:
+        res = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(res), b.to(res)
+    return torch.einsum(eq, a, b)
+
+
+def _write_slot(cache, new, slot):
+    """``cache`` with the (B, 1, ...) ``new`` written at position ``slot``
+    of axis 1, out of place: ``jax.lax.dynamic_update_slice``, whose start
+    is clamped into range."""
+    start = torch.clamp(slot, 0, cache.shape[1] - 1).reshape(1)
+    return cache.index_copy(1, start, new.to(cache.dtype))
+
+
+def gqa_decode(params, x, cfg, cache, cache_len):
+    """One-token decode against the resident model's KV cache.
+
+    cache: dict(k=(B, S_max, KH, D), v=...); ``cache_len`` (an int or an
+    int tensor) counts the tokens already cached; the new token goes to
+    slot ``cache_len % S_max`` for sliding-window caches, ``cache_len``
+    otherwise.  Attention reads the pre-update cache and merges the new
+    token's own term analytically (a two-term softmax), as the reference
+    does.  Returns (out, new_cache)."""
+    b = x.shape[0]
+    cl = torch.as_tensor(cache_len, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = gqa_project_qkv(params, x, cfg,
+                                      cl.reshape(1, 1).expand(b, 1))
+    s_max = cache["k"].shape[1]
+    slot = (cl % s_max) if cfg.sliding_window else cl
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    scale = math.sqrt(cfg.head_dim)
+    kk = _repeat_kv(cache["k"], n_rep)
+    vv = _repeat_kv(cache["v"], n_rep)
+    scores = _scores(q, kk) / scale
+    # valid old entries: the first min(cache_len, S_max) slots; in a
+    # rolling cache the slot about to be overwritten is stale too
+    idx = torch.arange(s_max, device=x.device)[None, None, None, :]
+    valid = idx < torch.clamp(cl, max=s_max)
+    if cfg.sliding_window:
+        valid = valid & (idx != slot)
+    scores = torch.where(valid, scores, _neg_inf(x.device))
+
+    s_new = (torch.einsum("bqhd,bqhd->bhq", q, _repeat_kv(k_new, n_rep))
+             / scale).float()[..., None]
+    m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_new)
+    p_old = torch.exp(scores - m)
+    p_new = torch.exp(s_new - m)                           # (B,H,1,1)
+    denom = p_old.sum(dim=-1, keepdim=True) + p_new
+    out_old = _einsum("bhqk,bkhd->bqhd", (p_old / denom).to(q.dtype), vv)
+    w_new = (p_new / denom)[:, :, 0].to(q.dtype)           # (B,H,1)
+    out_new = w_new.transpose(1, 2)[..., None] * _repeat_kv(v_new, n_rep)
+    out = (out_old + out_new).to(x.dtype)
+    out = dense(out.reshape(b, 1, -1), params["attn.w_o"])
+    return out, {"k": _write_slot(cache["k"], k_new, slot),
+                 "v": _write_slot(cache["v"], v_new, slot)}
 
 
 def gqa_prefill(params, x, cfg, *, window=None):
@@ -243,3 +317,90 @@ def _attend_step(q, k_new, v_new, k_cache, v_cache, cl_col, cfg, *, chunk,
         p_c = (torch.exp(sc - m) / denom).to(dtype)
         out = out + torch.einsum("bhqk,bkhd->bhqd", p_c, vv_c.to(dtype))
     return out.transpose(1, 2).reshape(b, 1, -1)          # (B,1,H*D)
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V3 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def mla_project_q(params, x, cfg, positions):
+    """Queries through the q latent: (B, S, H, nope + rope), the rope half
+    rotated."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_lat = dense(x, params["attn.w_dq"])                    # (B,S,q_rank)
+    if "attn.q_lat_norm" in params:
+        q_lat = rms_norm(q_lat, params["attn.q_lat_norm"], cfg.rms_eps)
+    q = dense(q_lat, params["attn.w_uq"]).reshape(
+        b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                             dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return torch.cat([q_nope, q_rope], dim=-1)
+
+
+def mla_compress_kv(params, x, cfg, positions):
+    """The cached latent: (c_kv (B, S, kv_rank), k_rope (B, S, rope)), the
+    one rope head shared by every query head."""
+    m = cfg.mla
+    ckv = dense(x, params["attn.w_dkv"])                     # (B,S,rank+rope)
+    c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_expand_kv(params, c_kv, k_rope, cfg):
+    """Per-head K (B, S, H, nope + rope) and V (B, S, H, v) from the
+    latent; the shared rope head is broadcast over the heads."""
+    m = cfg.mla
+    b, s, _ = c_kv.shape
+    if "attn.kv_lat_norm" in params:
+        c_kv = rms_norm(c_kv, params["attn.kv_lat_norm"], cfg.rms_eps)
+    kv = dense(c_kv, params["attn.w_ukv"]).reshape(
+        b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope_b = k_rope[:, :, None, :].expand(b, s, cfg.n_heads,
+                                            m.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def mla_attention(params, x, cfg, *, causal=True, window=None):
+    """Full-sequence MLA (training, prefill, the uncached pass)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q = mla_project_q(params, x, cfg, positions)
+    c_kv, k_rope = mla_compress_kv(params, x, cfg, positions)
+    k, v = mla_expand_kv(params, c_kv, k_rope, cfg)
+    w = cfg.sliding_window if window is None else window
+    out = attention_scores(q, k, v, causal=causal, window=w)
+    return dense(out.reshape(b, s, -1), params["attn.w_o"])
+
+
+def mla_decode(params, x, cfg, cache, cache_len):
+    """One-token decode with the compressed-latent cache
+    ``{"ckv": (B, S_max, kv_rank + rope)}``: the new token's latent is
+    written first (out of place), then K/V are expanded from the whole
+    cache and the scores (fp32) masked to its first
+    ``min(cache_len + 1, S_max)`` slots.  Returns (out, new_cache)."""
+    m = cfg.mla
+    b = x.shape[0]
+    cl = torch.as_tensor(cache_len, dtype=torch.int64, device=x.device)
+    positions = cl.reshape(1, 1).expand(b, 1)
+    q = mla_project_q(params, x, cfg, positions)
+    c_new, krope_new = mla_compress_kv(params, x, cfg, positions)
+    s_max = cache["ckv"].shape[1]
+    slot = (cl % s_max) if cfg.sliding_window else cl
+    ckv = _write_slot(cache["ckv"], torch.cat([c_new, krope_new], dim=-1),
+                      slot)
+    c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    k, v = mla_expand_kv(params, c_kv, k_rope, cfg)
+    scores = _scores(q, k) / math.sqrt(m.qk_nope_head_dim
+                                       + m.qk_rope_head_dim)
+    valid = torch.arange(s_max, device=x.device)[None, None, None, :] < \
+        torch.clamp(cl + 1, max=s_max)
+    scores = torch.where(valid, scores, _neg_inf(x.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = _einsum("bhqk,bkhd->bqhd", probs, v).to(x.dtype)
+    out = dense(out.reshape(b, 1, -1), params["attn.w_o"])
+    return out, {"ckv": ckv}

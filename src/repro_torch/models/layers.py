@@ -15,6 +15,18 @@ import torch
 import torch.nn.functional as F
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; asking for CUDA without a card
+    raises (the port never drops to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda is not "
+                           f"available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def rms_norm(x, weight, eps: float = 1e-6):
     """RMSNorm scaling by ``(1 + weight)``: the (…, 1) inverse RMS is fp32,
     the (…, D) multiplies stay in x's dtype."""
@@ -94,8 +106,12 @@ def embed_lookup(table, tokens, *, scale: bool = False):
 
 def lm_logits(h, table_or_head, *, transpose: bool = False):
     """Final projection; ``transpose`` for tied (vocab, d) tables.  The
-    product runs in the activation dtype and is upcast to fp32 after."""
+    product runs in the activation dtype (mixed inputs promote as in jnp)
+    and is upcast to fp32 after."""
     w = table_or_head.T if transpose else table_or_head
+    if w.dtype != h.dtype:
+        res = torch.promote_types(h.dtype, w.dtype)
+        h, w = h.to(res), w.to(res)
     return torch.matmul(h, w).float()
 
 
@@ -114,15 +130,26 @@ def cross_entropy(logits, labels, *, mask=None):
 # Initializers (explicit torch.Generator)
 # ---------------------------------------------------------------------------
 
-def trunc_normal(generator: torch.Generator, shape, std: float = 0.02,
-                 dtype=torch.float32):
-    """``std`` × a standard normal truncated to [-2, 2]."""
-    out = torch.empty(shape, dtype=dtype, device=generator.device)
+def trunc_normal_(generator: torch.Generator, out, std: float):
+    """Fill ``out`` in place with ``std`` × a standard normal truncated to
+    [-2, 2]."""
     return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=generator)
 
 
+def trunc_normal(generator: torch.Generator, shape, std: float = 0.02,
+                 dtype=torch.float32):
+    """``std`` × a standard normal truncated to [-2, 2]."""
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    return trunc_normal_(generator, out, std)
+
+
+def fan_in_std(shape) -> float:
+    """1/sqrt(fan_in); fan-in is the second-to-last axis."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    return 1.0 / math.sqrt(fan_in)
+
+
 def fan_in_init(generator: torch.Generator, shape, dtype=torch.float32):
     """1/sqrt(fan_in) trunc-normal; fan-in is the second-to-last axis."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
-    return trunc_normal(generator, shape, 1.0 / math.sqrt(fan_in), dtype)
+    return trunc_normal(generator, shape, fan_in_std(shape), dtype)

@@ -1,26 +1,49 @@
-"""Per-layer pieces of the decoder LM on torch tensors.
+"""The decoder LM on torch tensors: per-layer pieces and the resident model.
 
-Port of the layer taxonomy, per-layer init, the FFN half and the
-full-sequence block of ``src/repro/models/transformer.py``, for the
-families this port runs: attention mixers with dense or MoE FFNs.  Other
-mixers (MLA, Mamba, xLSTM) raise and name the slice that brings them.
+Port of ``src/repro/models/transformer.py`` for the families this port
+runs: attention (GQA, sliding-window, bidirectional VLM prefix) and MLA
+mixers with dense or MoE FFNs, and DeepSeek's multi-token-prediction
+(MTP) head.  Mamba and xLSTM mixers raise and name the slice that brings
+them.
+
+* Per layer: the taxonomy (:func:`mixer_kind`, :func:`ffn_kind`,
+  :func:`layer_period`), :func:`init_layer_params` (the reference's
+  parameter order) and the blocks :func:`apply_layer` /
+  :func:`apply_ffn`, which return ``(h, aux)`` as the reference's do; the
+  offload adapter runs them one unit at a time.
+* The device-resident model: :func:`init_params` stacks each position of
+  the layer period over the ``n_layers / period`` groups
+  (``params["groups"]`` is a list of dicts of ``(G, ...)`` tensors), and
+  :func:`forward` / :func:`decode_step` loop over the leading group axis
+  where the reference scans it.  ``remat=True`` checkpoints each group
+  (``torch.utils.checkpoint``, non-reentrant), as the reference's
+  ``jax.checkpoint`` does.
+* :func:`from_numpy_params` carries the reference's ``init_params`` tree,
+  as numpy, into the port's.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from .attention import gqa_attention
-from .layers import fan_in_init, gated_mlp, rms_norm
+from .attention import gqa_attention, gqa_decode, mla_attention, mla_decode
+from .layers import (cross_entropy, dense, embed_lookup, fan_in_std,
+                     gated_mlp, lm_logits, rms_norm, trunc_normal_)
 from .moe import moe_ffn
 
-LATER = ("is not ported yet: the PyTorch port runs attention mixers with "
-         "dense or MoE FFNs (MLA, Mamba and xLSTM come with the model-zoo "
-         "slices)")
+LATER = ("is not ported yet: the PyTorch port runs attention and MLA "
+         "mixers with dense or MoE FFNs (Mamba and xLSTM come with a later "
+         "model-zoo slice)")
 
+
+# ---------------------------------------------------------------------------
+# Layer taxonomy
+# ---------------------------------------------------------------------------
 
 def mixer_kind(cfg: ModelConfig, layer: int) -> str:
     if cfg.family == "ssm":
@@ -46,66 +69,345 @@ def layer_period(cfg: ModelConfig) -> int:
     return min(p, cfg.n_layers)
 
 
-def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
-                      layer: int, dtype=torch.float32) -> dict:
-    """Fresh parameters of one attention layer with a dense or MoE FFN,
-    drawn from ``generator`` in the reference's parameter order."""
-    mk, fk = mixer_kind(cfg, layer), ffn_kind(cfg, layer)
-    if mk != "attn":
+def _ported(mk: str) -> None:
+    if mk not in ("attn", "mla"):
         raise NotImplementedError(f"mixer {mk!r} {LATER}")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init
+# ---------------------------------------------------------------------------
+
+def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
+    """``(name, shape, drawn)`` of one layer's parameters in the
+    reference's order; ``drawn`` ones are fan-in trunc-normal, the rest
+    (norm weights) zeros."""
+    mk, fk = mixer_kind(cfg, layer), ffn_kind(cfg, layer)
+    _ported(mk)
     d = cfg.d_model
-    p: dict = {"norm_mixer": torch.zeros((d,), dtype=dtype),
-               "attn.w_q": fan_in_init(generator, (d, cfg.q_dim), dtype),
-               "attn.w_k": fan_in_init(generator, (d, cfg.kv_dim), dtype),
-               "attn.w_v": fan_in_init(generator, (d, cfg.kv_dim), dtype),
-               "attn.w_o": fan_in_init(generator, (cfg.q_dim, d), dtype)}
-    if cfg.qk_norm:
-        p["attn.q_norm"] = torch.zeros((cfg.head_dim,), dtype=dtype)
-        p["attn.k_norm"] = torch.zeros((cfg.head_dim,), dtype=dtype)
+    specs = [("norm_mixer", (d,), False)]
+    if mk == "attn":
+        specs += [("attn.w_q", (d, cfg.q_dim), True),
+                  ("attn.w_k", (d, cfg.kv_dim), True),
+                  ("attn.w_v", (d, cfg.kv_dim), True),
+                  ("attn.w_o", (cfg.q_dim, d), True)]
+        if cfg.qk_norm:
+            specs += [("attn.q_norm", (cfg.head_dim,), False),
+                      ("attn.k_norm", (cfg.head_dim,), False)]
+    else:
+        m = cfg.mla
+        qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+        specs += [
+            ("attn.w_dq", (d, m.q_lora_rank), True),
+            ("attn.q_lat_norm", (m.q_lora_rank,), False),
+            ("attn.w_uq", (m.q_lora_rank, cfg.n_heads * qk_head), True),
+            ("attn.w_dkv", (d, m.kv_lora_rank + m.qk_rope_head_dim), True),
+            ("attn.kv_lat_norm", (m.kv_lora_rank,), False),
+            ("attn.w_ukv", (m.kv_lora_rank,
+                            cfg.n_heads * (m.qk_nope_head_dim
+                                           + m.v_head_dim)), True),
+            ("attn.w_o", (cfg.n_heads * m.v_head_dim, d), True)]
     if fk != "none":
-        p["norm_ffn"] = torch.zeros((d,), dtype=dtype)
+        specs.append(("norm_ffn", (d,), False))
     if fk == "dense":
         if cfg.gated_act in ("swiglu", "geglu"):
-            p["ffn.w_gate"] = fan_in_init(generator, (d, cfg.d_ff), dtype)
-        p["ffn.w_up"] = fan_in_init(generator, (d, cfg.d_ff), dtype)
-        p["ffn.w_down"] = fan_in_init(generator, (cfg.d_ff, d), dtype)
+            specs.append(("ffn.w_gate", (d, cfg.d_ff), True))
+        specs += [("ffn.w_up", (d, cfg.d_ff), True),
+                  ("ffn.w_down", (cfg.d_ff, d), True)]
     elif fk == "moe":
         e = cfg.moe
-        p["moe.w_router"] = fan_in_init(generator, (d, e.n_experts), dtype)
-        for name in ("moe.w_gate", "moe.w_up"):
-            p[name] = fan_in_init(generator, (e.n_experts, d, e.d_ff_expert),
-                                  dtype)
-        p["moe.w_down"] = fan_in_init(generator,
-                                      (e.n_experts, e.d_ff_expert, d), dtype)
+        specs += [("moe.w_router", (d, e.n_experts), True),
+                  ("moe.w_gate", (e.n_experts, d, e.d_ff_expert), True),
+                  ("moe.w_up", (e.n_experts, d, e.d_ff_expert), True),
+                  ("moe.w_down", (e.n_experts, e.d_ff_expert, d), True)]
         if e.n_shared:
             f = e.n_shared * e.d_ff_expert
-            p["moe.shared_gate"] = fan_in_init(generator, (d, f), dtype)
-            p["moe.shared_up"] = fan_in_init(generator, (d, f), dtype)
-            p["moe.shared_down"] = fan_in_init(generator, (f, d), dtype)
-    return p
+            specs += [("moe.shared_gate", (d, f), True),
+                      ("moe.shared_up", (d, f), True),
+                      ("moe.shared_down", (f, d), True)]
+    return specs
 
+
+def _fill_(generator: torch.Generator, out: torch.Tensor, drawn: bool,
+           shape) -> torch.Tensor:
+    if drawn:
+        return trunc_normal_(generator, out, fan_in_std(shape))
+    return out.zero_()
+
+
+def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
+                      layer: int, dtype=torch.float32, *,
+                      place=None) -> dict:
+    """Fresh parameters of one layer drawn from ``generator`` (on its
+    device) in the reference's parameter order.  ``place`` maps each
+    tensor as soon as it is drawn (the offload adapter moves each to the
+    host there, so no whole block is ever held on the device)."""
+    out = {}
+    for name, shape, drawn in layer_param_specs(cfg, layer):
+        t = _fill_(generator, torch.empty(shape, dtype=dtype,
+                                          device=generator.device),
+                   drawn, shape)
+        out[name] = t if place is None else place(t)
+    return out
+
+
+def _generator(generator_or_seed, device) -> torch.Generator:
+    if isinstance(generator_or_seed, torch.Generator):
+        return generator_or_seed
+    return torch.Generator(device=device).manual_seed(int(generator_or_seed))
+
+
+def init_params(generator_or_seed, cfg: ModelConfig, dtype=torch.float32,
+                *, device="cuda") -> dict:
+    """Full parameter tree with period-stacked layer groups: ``embed``,
+    ``final_norm``, ``head`` (untied only), ``groups`` (one dict of
+    ``(G, ...)`` tensors per position of the period) and, for MTP configs,
+    ``mtp`` (one block of layer ``n_layers - 1``'s kinds), ``mtp_norm`` and
+    ``mtp_proj``.  A seed draws from a generator on ``device``; a
+    generator draws on its own device.  Each tensor is drawn in place in
+    ``dtype``, so the peak is the tree itself."""
+    gen = _generator(generator_or_seed, device)
+    dev = gen.device
+    p = layer_period(cfg)
+    n_groups = cfg.n_layers // p
+    assert n_groups * p == cfg.n_layers, \
+        f"{cfg.name}: n_layers={cfg.n_layers} not divisible by period={p}"
+
+    def new(shape):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    params: dict = {"embed": trunc_normal_(gen, new((cfg.vocab, cfg.d_model)),
+                                           0.02),
+                    "final_norm": new((cfg.d_model,)).zero_()}
+    if not cfg.tie_embeddings:
+        shape = (cfg.d_model, cfg.vocab)
+        params["head"] = trunc_normal_(gen, new(shape), fan_in_std(shape))
+    groups = []
+    for j in range(p):
+        specs = layer_param_specs(cfg, j)
+        stacked = {name: new((n_groups, *shape)) for name, shape, _ in specs}
+        for g in range(n_groups):
+            for name, shape, drawn in specs:
+                _fill_(gen, stacked[name][g], drawn, shape)
+        groups.append(stacked)
+    params["groups"] = groups
+    if cfg.mtp:
+        params["mtp"] = init_layer_params(gen, cfg, cfg.n_layers - 1, dtype)
+        params["mtp_norm"] = new((cfg.d_model,)).zero_()
+        shape = (2 * cfg.d_model, cfg.d_model)
+        params["mtp_proj"] = trunc_normal_(gen, new(shape), fan_in_std(shape))
+    return params
+
+
+def from_numpy_params(cfg: ModelConfig, params_np, dtype=torch.float32,
+                      device="cuda") -> dict:
+    """The port's parameter tree from the reference's ``init_params`` tree
+    as numpy (``groups`` a list or tuple of dicts of stacked arrays, the
+    ``mtp*`` keys for MTP configs), each array cast to ``dtype`` on
+    ``device``."""
+    def conv(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=device, dtype=dtype)
+
+    out = {}
+    for key, value in params_np.items():
+        if key == "groups":
+            out[key] = [{k: conv(v) for k, v in g.items()} for g in value]
+        elif isinstance(value, dict):
+            out[key] = {k: conv(v) for k, v in value.items()}
+        else:
+            out[key] = conv(value)
+    if len(out["groups"]) != layer_period(cfg):
+        raise ValueError(f"{cfg.name}: {len(out['groups'])} groups for a "
+                         f"layer period of {layer_period(cfg)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Layer application (full sequence)
+# ---------------------------------------------------------------------------
 
 def apply_ffn(cfg: ModelConfig, fk: str, params, h):
-    """Pre-norm FFN residual half of a block (dense, MoE or none); the MoE
-    auxiliary loss is dropped, as the reference's offloaded loss drops
-    it."""
+    """Pre-norm FFN residual half of a block (dense, MoE or none).
+    Returns ``(h, aux)``, the MoE load-balance loss or an fp32 zero (the
+    offloaded applies drop it, as the reference's offloaded loss does)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if fk == "none":
-        return h
+        return h, aux
     hn = rms_norm(h, params["norm_ffn"], cfg.rms_eps)
     if fk == "moe":
-        out, _aux = moe_ffn(params, hn, cfg)
-        return h + out
+        out, aux = moe_ffn(params, hn, cfg)
+        return h + out, aux
     out = gated_mlp(hn, params["ffn.w_up"], params["ffn.w_down"],
                     cfg.gated_act, w_gate=params.get("ffn.w_gate"))
-    return h + out
+    return h + out, aux
 
 
 def apply_layer(cfg: ModelConfig, kinds: tuple[str, str], params, h, *,
-                causal: bool = True):
-    """Pre-norm residual block (training / full sequence): mixer + FFN."""
+                prefix_len: int = 0, causal: bool = True):
+    """Pre-norm residual block: mixer + FFN.  Returns ``(h, aux)``."""
     mk, fk = kinds
-    if mk != "attn":
-        raise NotImplementedError(f"mixer {mk!r} {LATER}")
+    _ported(mk)
     hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
-    mix = gqa_attention(params, hn, cfg, causal=causal)
+    if mk == "attn":
+        mix = gqa_attention(params, hn, cfg, causal=causal,
+                            prefix_len=prefix_len)
+    else:
+        mix = mla_attention(params, hn, cfg, causal=causal)
     return apply_ffn(cfg, fk, params, h + mix)
+
+
+def _n_groups(params) -> int:
+    return next(iter(params["groups"][0].values())).shape[0]
+
+
+def _group(stacked: dict, g: int) -> dict:
+    return {k: v[g] for k, v in stacked.items()}
+
+
+def forward(cfg: ModelConfig, params, h, *, prefix_len: int = 0,
+            causal: bool = True, remat: bool = True):
+    """Run the layer stack over embedded inputs h: (B, S, D).  Returns
+    ``(final-normed h, aux)``."""
+    p = layer_period(cfg)
+    kinds = [(mixer_kind(cfg, j), ffn_kind(cfg, j)) for j in range(p)]
+
+    def group_body(h, aux, gparams):
+        for j in range(p):
+            h, a = apply_layer(cfg, kinds[j], gparams[j], h,
+                               prefix_len=prefix_len, causal=causal)
+            aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for g in range(_n_groups(params)):
+        gparams = [_group(s, g) for s in params["groups"]]
+        if remat and torch.is_grad_enabled():
+            h, aux = checkpoint(group_body, h, aux, gparams,
+                                use_reentrant=False)
+        else:
+            h, aux = group_body(h, aux, gparams)
+    return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
+
+
+def logits_fn(cfg: ModelConfig, params, h):
+    if cfg.tie_embeddings:
+        return lm_logits(h, params["embed"], transpose=True)
+    return lm_logits(h, params["head"])
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, dtype):
+    return embed_lookup(params["embed"], tokens,
+                        scale=cfg.embed_scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(cfg: ModelConfig, params, batch, *, compute_dtype=torch.bfloat16,
+            remat: bool = True, bf16_logits: bool = False):
+    """Causal-LM loss.  batch: tokens (B, S), labels (B, S) [+ image_embeds
+    (B, prefix, D) for VLM configs, ahead of the text as a bidirectional
+    prefix; the loss is taken on text positions only].  MTP configs add
+    0.3 × the CE of one extra block predicting t+2; MoE configs add the
+    load-balance losses."""
+    tokens, labels = batch["tokens"], batch["labels"].long()
+    h = embed_tokens(cfg, params, tokens, compute_dtype)
+    prefix = 0
+    if cfg.prefix_len:
+        img = batch["image_embeds"].to(compute_dtype)
+        h = torch.cat([img, h], dim=1)
+        prefix = cfg.prefix_len
+    h, aux = forward(cfg, params, h, prefix_len=prefix, remat=remat)
+    if prefix:
+        h = h[:, prefix:]
+    logits = logits_fn(cfg, params, h)
+    if bf16_logits:
+        logits = logits.to(torch.bfloat16)
+    loss = cross_entropy(logits, labels)
+
+    if cfg.mtp:
+        emb_next = embed_tokens(cfg, params, torch.roll(tokens, -1, dims=1),
+                                compute_dtype)
+        h_in = dense(torch.cat(
+            [rms_norm(h, params["mtp_norm"], cfg.rms_eps), emb_next],
+            dim=-1), params["mtp_proj"])
+        kinds = (mixer_kind(cfg, cfg.n_layers - 1),
+                 ffn_kind(cfg, cfg.n_layers - 1))
+        h_mtp, a2 = apply_layer(cfg, kinds, params["mtp"], h_in)
+        logits2 = logits_fn(cfg, params, h_mtp)
+        loss2 = cross_entropy(logits2, torch.roll(labels, -1, dims=1))
+        loss = loss + 0.3 * loss2
+        aux = aux + a2
+    return loss + aux
+
+
+# ---------------------------------------------------------------------------
+# Decode: caches + one-token step
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(cfg: ModelConfig, layer: int, batch: int,
+                     cache_seq: int, dtype=torch.bfloat16, device="cuda"):
+    """One layer's zero cache: K/V for attention (a rolling window of
+    ``sliding_window`` slots when set), the packed latent for MLA."""
+    mk = mixer_kind(cfg, layer)
+    _ported(mk)
+    s = min(cache_seq, cfg.sliding_window) if cfg.sliding_window \
+        else cache_seq
+    if mk == "attn":
+        shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, s, m.kv_lora_rank
+                                + m.qk_rope_head_dim), dtype=dtype,
+                               device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_seq: int,
+               dtype=torch.bfloat16, device="cuda") -> tuple:
+    """Stacked cache tree mirroring ``params["groups"]``: one dict of
+    ``(G, ...)`` tensors per position of the layer period."""
+    p = layer_period(cfg)
+    n_groups = cfg.n_layers // p
+    caches = []
+    for j in range(p):
+        one = init_layer_cache(cfg, j, batch, cache_seq, dtype, device)
+        caches.append({k: v[None].repeat(n_groups, *([1] * v.dim()))
+                       for k, v in one.items()})
+    return tuple(caches)
+
+
+def apply_layer_decode(cfg, kinds, params, h, cache, cache_len):
+    """One block's one-token step.  Returns ``(h, new_cache)``."""
+    mk, fk = kinds
+    _ported(mk)
+    hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
+    if mk == "attn":
+        mix, cache = gqa_decode(params, hn, cfg, cache, cache_len)
+    else:
+        mix, cache = mla_decode(params, hn, cfg, cache, cache_len)
+    h, _aux = apply_ffn(cfg, fk, params, h + mix)
+    return h, cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, cache_len, *,
+                compute_dtype=torch.bfloat16):
+    """One decode step: tokens (B, 1) + cache -> (logits (B, 1, V) fp32,
+    new cache).  The cache passed in is left as it was."""
+    p = layer_period(cfg)
+    kinds = [(mixer_kind(cfg, j), ffn_kind(cfg, j)) for j in range(p)]
+    h = embed_tokens(cfg, params, tokens, compute_dtype)
+    new = [{k: [] for k in c} for c in cache]
+    for g in range(_n_groups(params)):
+        for j in range(p):
+            h, c = apply_layer_decode(cfg, kinds[j],
+                                      _group(params["groups"][j], g), h,
+                                      _group(cache[j], g), cache_len)
+            for k, v in c.items():
+                new[j][k].append(v)
+    new_cache = tuple({k: torch.stack(v) for k, v in c.items()}
+                      for c in new)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return logits_fn(cfg, params, h), new_cache

@@ -689,3 +689,104 @@ def test_moe_decode_tokens_routed_equal_all_on_the_card(cuda, tmp_path):
                 kv.close()
             toks[mode] = np.stack(seq, axis=1)
     np.testing.assert_array_equal(toks["all"], toks["routed"])
+
+
+# -- the device-resident path (registry, lm_loss, decode_step, train step) --
+
+def _resident(arch, device, capacity=None):
+    """A reduced config's resident impl and fp32 params, drawn on the CPU
+    from one seed and moved to ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = get_config(arch).reduced()
+    if capacity:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity))
+    impl = build(cfg, compute_dtype=torch.float32, device=device)
+    cpu = build(cfg, compute_dtype=torch.float32, device="cpu")
+    params = cpu.init_params(0)
+    from repro_torch.train.step import tree_map
+    return impl, tree_map(lambda t: t.to(device), params)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen3-4b",
+                                  "paligemma-3b"])
+def test_resident_loss_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """fp32 (TF32 off): lm_loss (MTP and the VLM prefix included) within
+    rel 1e-5 of the CPU run, and ten decode steps within 1e-5 of each
+    row's max of the CPU's logits — the same math in another summation
+    order."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for device in ("cpu", "cuda"):
+        impl, params = _resident(arch, device, capacity=16.0
+                                 if "deepseek" in arch else None)
+        cfg = impl.cfg
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 10))
+                                  if device == "cpu" else out["tokens"])
+        batch = {"tokens": tokens.to(device),
+                 "labels": tokens.roll(-1, 1).to(device)}
+        if cfg.prefix_len:
+            batch["image_embeds"] = torch.ones(
+                (2, cfg.prefix_len, cfg.d_model), device=device)
+        with torch.no_grad():
+            loss = float(impl.loss_fn(params, batch))
+            cache = impl.init_cache(2, 10, dtype=torch.float32)
+            steps = []
+            for t in range(10):
+                logits, cache = impl.decode_fn(params, cache,
+                                               batch["tokens"][:, t:t + 1], t)
+                steps.append(logits[:, 0].cpu())
+        out["tokens"] = tokens.numpy()
+        out[device] = (loss, torch.stack(steps, 1).numpy())
+    (lc, dc), (lg, dg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    scale = np.abs(dc).max(-1, keepdims=True)
+    assert (np.abs(dg - dc) / scale).max() <= 1e-5
+
+
+def test_resident_train_step_flag_through_the_kernel(cuda):
+    """The train step's overflow screen launches the kernel once per
+    gradient leaf, and its flag equals the plain version's on the same
+    gradients: clean, then with one Inf in one leaf."""
+    from repro_torch.train import build_train_step, grads_overflow_flag
+    from repro_torch.train.step import tree_leaves
+    impl, params = _resident("deepseek-v3-671b", "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, impl.cfg.vocab, (2, 12))).cuda()
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    step = build_train_step(impl)
+    before = overflow_flag_cuda_.launches
+    loss, grads, overflow = step(params, batch, 1.0)
+    leaves = tree_leaves(grads)
+    assert overflow_flag_cuda_.launches - before == len(leaves)
+    plain = any(bool(overflow_check_plain(g)) for g in leaves)
+    assert not bool(overflow) and not plain
+    assert bool(grads_overflow_flag(grads, kind="baseline")) is False
+    leaves[3].view(-1)[-1] = float("nan")
+    assert bool(grads_overflow_flag(grads)) is True
+    assert bool(grads_overflow_flag(grads, kind="baseline")) is True
+    assert np.isfinite(float(loss))
+
+
+def test_mla_routed_losses_equal_all_on_the_card(cuda, tmp_path):
+    """bf16 offloaded training of deepseek-v3-671b.reduced() (MLA mixer,
+    paged MoE), two steps: routed expert residency gives the all-resident
+    losses bit for bit, and the loss falls."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b").reduced()
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, cfg.vocab, (2, 16))
+    labels = np.roll(tokens, -1, axis=1)
+    out = {}
+    for mode in ("all", "routed"):
+        model = make_offloadable_lm(cfg, 0, torch.bfloat16, device="cuda",
+                                    expert_paging="routed")
+        policy = (OffloadPolicy.preset("memascend")
+                  .with_store(str(tmp_path / mode)).with_adam(lr=1e-2)
+                  .with_expert_paging(mode, page_slots=12).build())
+        with OffloadSession(model, policy) as s:
+            out[mode] = [s.train_step(tokens, labels)["loss"]
+                         for _ in range(2)]
+    assert out["routed"] == out["all"]
+    assert out["all"][1] < out["all"][0]

@@ -34,7 +34,9 @@ def test_port_has_modules():
     "core/session.py", "kernels/overflow_check.py", "kernels/ops.py",
     "kernels/fused_adam.py", "serve/request.py", "serve/spec.py",
     "serve/scheduler.py", "core/checkpoint.py", "data/pipeline.py",
-    "models/moe.py", "core/paged.py"])
+    "models/moe.py", "core/paged.py", "models/registry.py",
+    "models/transformer.py", "train/step.py", "serve/decode.py",
+    "launch/train.py"])
 def test_training_slice_modules_are_scanned(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
@@ -59,3 +61,20 @@ def test_core_exports_the_reference_names():
     port = set(repro_torch.core.__all__) - PORT_ONLY
     assert port == ref, (f"missing {sorted(ref - port)}, "
                          f"extra {sorted(port - ref)}")
+
+
+@pytest.mark.parametrize("package", ["models", "train", "serve", "data"])
+def test_package_exports_the_reference_names(package):
+    """The resident path's packages export what the reference's do, less
+    the mixers of later slices (whisper, mamba, xlstm) and the sharded
+    prefill builder; the port adds ``TensorSpec`` (its
+    ``jax.ShapeDtypeStruct``) and exports ``grads_overflow_flag``."""
+    import importlib
+    ref = set(importlib.import_module(f"repro.{package}").__all__)
+    port = set(importlib.import_module(f"repro_torch.{package}").__all__)
+    later = {"whisper", "mamba", "xlstm"}
+    no_counterpart = {"build_prefill_step"}     # a sharded pjit wrapper
+    port_only = {"TensorSpec", "grads_overflow_flag"}
+    assert port - port_only == ref - later - no_counterpart, (
+        f"missing {sorted(ref - later - no_counterpart - port)}, extra "
+        f"{sorted(port - port_only - ref)}")

@@ -29,7 +29,7 @@ from repro.core import OffloadPolicy as JPolicy
 from repro.core.kv_cache import DecodeSpec as JSpec
 from repro.core.model_adapter import make_offloadable_lm as jax_lm
 from repro.serve import OffloadedDecoder as JDecoder
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig
 from repro_torch.core import DecodeSpec, OffloadPolicy, OffloadSession
 from repro_torch.core.model_adapter import (from_numpy_units,
                                             make_offloadable_lm)
@@ -196,12 +196,22 @@ def test_entry_points_refuse_what_is_not_ported(tmp_store_root):
         # cached one needs the spec's KV page slots in the pool census
         with pytest.raises(RuntimeError, match="DecodeSpec"):
             dec.generate(np.ones((2, 3), np.int32), 2, use_cache=True)
+    # MLA trains and decodes uncached; its cached decode is refused with
+    # the reference's ValueError (the reference has no offloaded latent
+    # cache either)
     mla = ModelConfig(**{**KW, "name": "tiny-mla"},
                       mla=MLAConfig(q_lora_rank=16, kv_lora_rank=16,
                                     qk_nope_head_dim=8, qk_rope_head_dim=8,
                                     v_head_dim=8))
-    with pytest.raises(NotImplementedError, match="mla"):
-        make_offloadable_lm(mla, 0, device="cpu")
+    with pytest.raises(ValueError, match="cached-decode"):
+        OffloadedDecoder(make_offloadable_lm(mla, 0, device="cpu"),
+                         _policy(tmp_store_root + "/mla", "float32"),
+                         decode=DecodeSpec(**_spec()))
+    # Mamba and xLSTM mixers come with a later slice
+    mamba = ModelConfig(**{**KW, "name": "tiny-mamba", "family": "ssm"},
+                        ssm=SSMConfig())
+    with pytest.raises(NotImplementedError, match="mamba"):
+        make_offloadable_lm(mamba, 0, device="cpu")
     # expert paging needs a MoE FFN to split into pages
     with pytest.raises(ValueError, match="MoE"):
         make_offloadable_lm(TCFG, 0, device="cpu", expert_paging="routed")
@@ -248,3 +258,32 @@ def test_cuda_request_without_a_card_raises():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="cuda"):
         make_offloadable_lm(TCFG, 0)
+
+
+def test_bf16_host_units_serve_the_same_bits(tmp_store_root):
+    """``host_dtype="bfloat16"`` units are the fp32 units rounded to bf16
+    bits (half the host memory): a serve session over them writes the
+    same compute weights and decodes the same tokens; a train session
+    refuses them (they carry no fp32 master)."""
+    from repro_torch.core.dtypes import BF16_HOST, cast_host
+    f32 = make_offloadable_lm(TCFG, 0, torch.bfloat16, device="cpu")
+    b16 = make_offloadable_lm(TCFG, 0, torch.bfloat16, device="cpu",
+                              host_dtype="bfloat16")
+    for a, b in zip(f32.units, b16.units, strict=True):
+        for k, v in a.params.items():
+            assert b.params[k].dtype == BF16_HOST
+            np.testing.assert_array_equal(b.params[k],
+                                          cast_host(v, "bfloat16"))
+    prompts = np.random.default_rng(2).integers(0, 256, (2, 6))
+    toks = []
+    for i, model in enumerate((f32, b16)):
+        with OffloadedDecoder(model, _policy(f"{tmp_store_root}/{i}",
+                                             "bfloat16"),
+                              decode=DecodeSpec(**_spec())) as dec:
+            toks.append((dec.generate(prompts, 4),
+                         dec.generate(prompts, 4, use_cache=False)))
+    np.testing.assert_array_equal(np.stack(toks[0]), np.stack(toks[1]))
+    with pytest.raises(TypeError, match="fp32 master"):
+        OffloadSession(b16, _policy(tmp_store_root + "/train", "bfloat16"))
+    with pytest.raises(ValueError, match="host_dtype"):
+        make_offloadable_lm(TCFG, 0, device="cpu", host_dtype="float16")
