@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--layers N] [--new-tokens N] [--train-layers N]
                           [--serve-layers N] [--moe-train-layers N]
-                          [--moe-layers N] [--mla-layers N] [--seed S]
+                          [--moe-layers N] [--mla-layers N]
+                          [--jamba-layers N] [--xlstm-layers N] [--seed S]
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -105,7 +106,28 @@ Phases (each raises on failure; the script exits non-zero):
        ``"routed"`` (768 host expert pages each, each arm's store dropped
        after it): equal tokens, the routed arm moving fewer expert
        bytes;
-11. print the ``kernels`` JSON line, the card line, and the result line.
+11. the recurrent and encoder-decoder families on the resident path
+    (phases 13-15 in the code's section comments), each at full width
+    with a bf16 tree drawn on the card from the seed, cut in depth only:
+    jamba-v0.1-52b (``--jamba-layers``, one 8-layer interleave period: 7
+    Mamba + 1 attention layer, 4 MoE + 4 dense FFNs, 26.6 GB),
+    xlstm-1.3b (``--xlstm-layers``, all 48 layers: 42 mLSTM + 6 sLSTM)
+    and whisper-tiny (whole, frames from the seed as the stub
+    frontend's).  Each runs three SGD steps (lr 1e-2, in place on the bf16
+    tree) through ``build_train_step`` and the loss scaler at batch 2 x
+    512 (whisper: x 448, its decoder cap) — the loss must fall, no clean
+    step overflow, one overflow-kernel launch per gradient leaf a step
+    (count zeroed just before, read just after) and the kernel's verdict
+    equal to the plain version's on every leaf of one more step — then
+    greedy decode through ``build_serve_step`` (whisper: ``encode`` ->
+    ``prefill_cross_cache`` first): a 64-token prompt and 16 new tokens,
+    the recurrent state bytes a layer equal after 32- and 64-token
+    prompts, and a teacher-forced audit at fp32 compute over the same
+    bf16 weights: the serve step's logits at all 79 positions within
+    rtol = atol = 2e-3 of ``prefill_fn``'s (router capacity 16); each
+    recurrent mixer (and Mamba's scan alone) is timed at the training
+    shape;
+12. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
@@ -151,8 +173,12 @@ from repro_torch.kernels.swa_attention import (  # noqa: E402
     attention_path, swa_attention_cuda, swa_attention_plain)
 from repro_torch.launch.train import resident_loop  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import whisper as whs  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models.layers import dense  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    from_numpy_params, init_params)
+    from_numpy_params, init_params, mixer_kind)
 from repro_torch.serve import (OffloadedDecoder, Request,  # noqa: E402
                                RequestState, ServingEngine, SpecConfig,
                                build_serve_step)
@@ -1709,22 +1735,45 @@ def _mla_config(n_layers: int, capacity: float | None = None):
     return cfg
 
 
-def _teacher_forced(impl, params, seq, cache_dtype):
+def _fresh_cache(impl, params, batch: int, max_seq: int, dtype,
+                 frames=None):
+    """A serve step's starting cache; for whisper (``frames`` given) with
+    the cross K/V of the encoded frames (encoded at ``dtype``, the
+    caller's compute dtype)."""
+    cache = impl.init_cache(batch, max_seq, dtype=dtype)
+    if frames is None:
+        return cache
+    with torch.no_grad():
+        memory = whs.encode(impl.cfg, params, frames.to(dtype))
+        return whs.prefill_cross_cache(impl.cfg, params, memory, cache)
+
+
+def _teacher_forced(impl, params, seq, cache_dtype, frames=None):
     """Logits of one serve step per position of ``seq`` (B, T) through the
-    latent cache, and prefill_fn's over all of ``seq``: (B, T, V) each, on
-    the host."""
+    cache, and prefill_fn's over all of ``seq``: (B, T, V) each, on the
+    host."""
     serve, _specs = build_serve_step(impl, InputShape(
-        "mla_audit", seq.shape[1], seq.shape[0], "decode"),
+        "audit", seq.shape[1], seq.shape[0], "decode"),
         cache_dtype=cache_dtype)
-    cache = impl.init_cache(seq.shape[0], seq.shape[1], dtype=cache_dtype)
+    cache = _fresh_cache(impl, params, seq.shape[0], seq.shape[1],
+                         cache_dtype, frames)
     steps = []
     for t in range(seq.shape[1]):
         logits, cache = serve(params, cache, seq[:, t:t + 1], t)
         steps.append(logits[:, 0].float().cpu())
     del cache
+    batch = {"tokens": seq}
+    if frames is not None:
+        batch["frames"] = frames
     with torch.no_grad():
-        full = impl.prefill_fn(params, {"tokens": seq}).float().cpu()
+        full = impl.prefill_fn(params, batch).float().cpu()
     return torch.stack(steps, dim=1).numpy(), full.numpy()
+
+
+def _row_gap(a, b) -> float:
+    """max |a - b| over each row's max |b| (at least 1)."""
+    return float((np.abs(a - b) / np.maximum(
+        np.abs(b).max(-1, keepdims=True), 1.0)).max())
 
 
 def run_mla_decode(args, device: str = "cuda") -> dict:
@@ -1793,20 +1842,16 @@ def run_mla_decode(args, device: str = "cuda") -> dict:
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
     del params
 
-    def row_gap(a, b):
-        return float((np.abs(a - b) / np.maximum(
-            np.abs(b).max(-1, keepdims=True), 1.0)).max())
-
     excess = float((np.abs(dec - full) - (MLA_TOL + MLA_TOL
                                           * np.abs(full))).max())
     tokens = torch.stack(new, dim=1).cpu().numpy()
     out = {"mla_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
            "prefill_s": prefill_s, "per_token_ms": per_token_ms,
-           "fp32_teacher_forced_gap": row_gap(dec, full),
+           "fp32_teacher_forced_gap": _row_gap(dec, full),
            "fp32_max_abs_diff": float(np.abs(dec - full).max()),
            "fp32_argmax_agreement": float(
                (dec.argmax(-1) == full.argmax(-1)).mean()),
-           "bf16_teacher_forced_gap": row_gap(dec16, full16),
+           "bf16_teacher_forced_gap": _row_gap(dec16, full16),
            "bf16_argmax_agreement": float(
                (dec16.argmax(-1) == full16.argmax(-1)).mean()),
            "audit_s": audit_s,
@@ -1932,6 +1977,332 @@ def run_mla_uncached(args, workdir: str) -> dict:
     return out
 
 
+# -- phases 13-15: the recurrent and encoder-decoder families ---------------
+
+FAM_BATCH, FAM_SEQ, FAM_STEPS = 2, 512, 3
+FAM_PROMPT, FAM_NEW = 64, 16
+# the recurrent-state check's two prompt lengths: the state a layer must
+# not grow from one to the other
+STATE_PROMPTS = (32, 64)
+FAM_ARCHS = {"jamba": "jamba-v0.1-52b", "xlstm": "xlstm-1.3b",
+             "whisper": "whisper-tiny"}
+
+
+def _family_config(name: str, args, capacity: float | None = None):
+    cfg = get_config(FAM_ARCHS[name])
+    if name != "whisper":
+        cfg = dataclasses.replace(cfg, n_layers=getattr(args,
+                                                        f"{name}_layers"))
+    if capacity is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity))
+    return cfg
+
+
+def _sgd_steps(impl, params, batch, device: str, profile: bool) -> dict:
+    """FAM_STEPS steps of build_train_step with the loss scaler, SGD (lr
+    RESIDENT_LR) applied in place to the bf16 tree on each step the scaler
+    admits.  (The launcher's ``resident_loop``, phase 10a, returns a new
+    tree a step: at jamba's 26.6 GB that third copy beside the tree and
+    its gradients does not fit on the card.)  Then the kernel is held to
+    its plain version on every gradient leaf of one more step, run under
+    the profiler if ``profile``."""
+    step = build_train_step(impl)
+    scaler = DynamicLossScaler(scale=1.0)
+    leaves = tree_leaves(params)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, flags, walls = [], [], []
+    _sync(device)
+    overflow_flag_cuda_.launches = 0
+    for _ in range(FAM_STEPS):
+        t0 = time.perf_counter()
+        scale = scaler.scale
+        loss, grads, overflow = step(params, batch, scale)
+        overflowed = bool(overflow)
+        if scaler.update(overflowed):
+            with torch.no_grad():
+                for p, g in zip(leaves, tree_leaves(grads), strict=True):
+                    p.sub_(g.to(p.dtype), alpha=RESIDENT_LR / scale)
+        del grads
+        losses.append(float(loss))
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+        flags.append(overflowed)
+    launches = overflow_flag_cuda_.launches
+    on_card = torch.device(device).type == "cuda"
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    # one more step (under the profiler: the device's busy time, the
+    # kernels that take it), whose gradients then hold the kernel to its
+    # plain version
+    with _maybe_profile(on_card and profile) as prof:
+        _loss, grads, overflow = step(params, batch, scaler.scale)
+        _sync(device)
+    busy_ms, events = _device_busy_ms(prof) if prof else (0.0, [])
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    g_leaves = tree_leaves(grads)
+    if on_card:
+        for g in g_leaves:
+            _ov_agree(g.contiguous(), expect=False)
+        g = g_leaves[-1].clone()
+        g.view(-1)[-1] = float("inf")
+        _ov_agree(g, expect=True)
+    del grads, g_leaves
+    out = {"losses": losses, "overflowed": flags, "step_s": walls,
+           "gradient_leaves": len(leaves), "overflow_launches": launches,
+           "max_memory_allocated": peak,
+           # against the last unprofiled step: the profiler's own cost
+           # inflates the profiled one
+           "step_device_busy_ms": busy_ms or None,
+           "device_idle_share": (1.0 - busy_ms / (1e3 * walls[-1]))
+           if busy_ms else None,
+           "top_kernels_ms": [(e.key[:60], e.self_device_time_total / 1e3,
+                               e.count) for e in top]}
+    if any(flags) or bool(overflow):
+        raise AssertionError(f"a clean step overflowed: {flags}")
+    if not (np.isfinite(losses).all()
+            and all(a > b for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"losses {losses} do not fall")
+    if device == "cuda" and launches != len(leaves) * FAM_STEPS:
+        raise AssertionError(f"overflow_check launched {launches} times "
+                             f"for {len(leaves)} leaves x {FAM_STEPS} "
+                             f"steps")
+    return out
+
+
+def _state_bytes(cfg, cache) -> dict:
+    """Cache bytes a layer of each mixer kind (the recurrent ones hold a
+    fixed-size state; attention's K/V grow with the cache's length)."""
+    if cfg.family == "audio":
+        return {"attn": sum(v.numel() * v.element_size()
+                            for v in cache.values()) // cfg.n_layers}
+    out: dict = {}
+    for j, c in enumerate(cache):
+        kind = mixer_kind(cfg, j)
+        out.setdefault(kind, set()).add(
+            sum(v[0].numel() * v[0].element_size() for v in c.values()))
+    if any(len(v) != 1 for v in out.values()):
+        raise AssertionError(f"uneven cache bytes a layer: {out}")
+    return {k: v.pop() for k, v in out.items()}
+
+
+def _greedy(impl, params, prompts, max_seq, device, frames=None):
+    """The prompt through the serve step one token at a time, then
+    FAM_NEW - 1 greedy steps.  Returns (logits (B, T, V) of every step on
+    the host, new tokens, ms a greedy token, the cache after the
+    prompt's state bytes)."""
+    serve, _specs = build_serve_step(impl, InputShape(
+        "family_decode", max_seq, prompts.shape[0], "decode"))
+    cache = _fresh_cache(impl, params, prompts.shape[0], max_seq,
+                         torch.bfloat16, frames)
+    steps = []
+    for t in range(prompts.shape[1]):
+        logits, cache = serve(params, cache, prompts[:, t:t + 1], t)
+        steps.append(logits[:, 0])
+    state = _state_bytes(impl.cfg, cache)
+    nxt = logits[:, 0].argmax(-1)
+    new = [nxt]
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(FAM_NEW - 1):
+        logits, cache = serve(params, cache, nxt[:, None],
+                              prompts.shape[1] + i)
+        steps.append(logits[:, 0])
+        nxt = logits[:, 0].argmax(-1)
+        new.append(nxt)
+    _sync(device)
+    per_token_ms = 1e3 * (time.perf_counter() - t0) / (FAM_NEW - 1)
+    # four more steps under the profiler (not in the logits or the
+    # tokens): the device's busy time a token
+    on_card = torch.device(device).type == "cuda"
+    with _maybe_profile(on_card) as prof:
+        c = cache
+        for i in range(4):
+            _lg, c = serve(params, c, nxt[:, None], max_seq - 1)
+        _sync(device)
+    busy_ms = _device_busy_ms(prof)[0] / 4 if on_card else None
+    return (torch.stack(steps, dim=1).float().cpu().numpy(),
+            torch.stack(new, dim=1), per_token_ms, state, busy_ms)
+
+
+def _time_mixer(fn, params, x, device, reps: int = 3) -> tuple:
+    """(forward ms, forward + backward ms) of ``fn(params, x)`` at the
+    training batch's shape, the median of ``reps``: what one layer's mixer
+    costs a step is about their sum (the group's checkpointed forward,
+    then its recompute and backward)."""
+    fwd, both = [], []
+    for _ in range(reps):
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xx = x.detach().requires_grad_()
+        _sync(device)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            fn(p, xx)
+        _sync(device)
+        t1 = time.perf_counter()
+        with torch.enable_grad():
+            out = fn(p, xx)
+            torch.autograd.grad(out, [xx] + list(p.values()),
+                                grad_outputs=torch.ones_like(out))
+        _sync(device)
+        fwd.append(1e3 * (t1 - t0))
+        both.append(1e3 * (time.perf_counter() - t1))
+    return statistics.median(fwd), statistics.median(both)
+
+
+def _mixer_timings(cfg, params, device, gen) -> dict:
+    """Each recurrent mixer of the model (and Mamba's selective scan on its
+    own) timed on the first group's weights at the training shape."""
+    out = {}
+    x = torch.randn((FAM_BATCH, FAM_SEQ, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    for j in range(len(params["groups"])):
+        kind = mixer_kind(cfg, j)
+        if kind in out or kind not in ("mamba", "mlstm", "slstm"):
+            continue
+        lp = {k: v[0] for k, v in params["groups"][j].items()
+              if k.startswith(("ssm.", "mlstm.", "slstm."))}
+        mixer = {"mamba": mamba_mod.mamba_mixer,
+                 "mlstm": xlstm_mod.mlstm_mixer,
+                 "slstm": xlstm_mod.slstm_mixer}[kind]
+        out[kind] = _time_mixer(lambda p, xx, m=mixer: m(p, xx, cfg), lp, x,
+                                device)
+        if kind == "mamba":
+            with torch.no_grad():
+                xi = F.silu(mamba_mod.causal_conv1d(
+                    dense(x, lp["ssm.w_in_x"]), lp["ssm.conv_w"])[0])
+                dt, b_in, c_in = mamba_mod._ssm_params(lp, xi, cfg)
+
+            def scan(p, xx, dt=dt, b_in=b_in, c_in=c_in):
+                return mamba_mod.selective_scan(
+                    xx, dt, b_in, c_in, p["ssm.a_log"], p["ssm.d_skip"],
+                    chunk=cfg.ssm.chunk)[0]
+            out["selective_scan"] = _time_mixer(
+                scan, {k: lp[k] for k in ("ssm.a_log", "ssm.d_skip")}, xi,
+                device)
+    return out
+
+
+def run_family(name: str, args, device: str = "cuda") -> dict:
+    """One family at full width, cut in depth only: its bf16 tree drawn on
+    the card from the seed, three resident SGD steps through
+    build_train_step and the loss scaler, greedy decode through the serve
+    step, and a teacher-forced audit at fp32 compute over the same bf16
+    weights against prefill_fn."""
+    cfg = _family_config(name, args)
+    cfg16 = _family_config(name, args, MLA_CAPACITY)
+    dev = torch.device(device)
+    seed = args.seed + {"jamba": 13, "xlstm": 14, "whisper": 15}[name]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    if cfg.family == "audio":
+        params = whs.init_whisper_params(gen, cfg, torch.bfloat16)
+    else:
+        params = init_params(gen, cfg, torch.bfloat16)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    seq = cfg.max_decode_len if cfg.family == "audio" else FAM_SEQ
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(FAM_BATCH, seq), dtype=np.int64)).to(dev)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    frames = None
+    if cfg.family == "audio":       # the stub frontend's frame embeddings
+        frames = torch.randn((FAM_BATCH, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
+        batch["frames"] = frames
+    print(f"{name}: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} vocab {cfg.vocab}, depth {cfg.n_layers} of "
+          f"{get_config(FAM_ARCHS[name]).n_layers}, {n_params} parameters "
+          f"({2 * n_params / 1e9:.2f} GB bf16, drawn in {init_s:.1f} s); "
+          f"train batch {FAM_BATCH} x {seq}, {FAM_STEPS} SGD steps at lr "
+          f"{RESIDENT_LR:g}")
+    # no trace of xlstm's step: its sLSTM loops launch ~10^5 kernels a
+    # step, and processing that trace took the phase from 54 s to 219 s
+    # (NVIDIA H100 80GB HBM3, 700 W)
+    train = _sgd_steps(build(cfg, device=dev), params, batch, device,
+                       profile=name != "xlstm")
+    for k, v in train.items():
+        print(f"  {k}: {v}")
+    mixers = {} if cfg.family == "audio" else \
+        _mixer_timings(cfg, params, device, gen)
+    for k, (f_ms, fb_ms) in mixers.items():
+        print(f"  {k} at {FAM_BATCH} x {FAM_SEQ}: forward {f_ms:.2f} ms, "
+              f"forward + backward {fb_ms:.2f} ms")
+
+    impl16 = build(cfg16, device=dev)
+    prompts = tokens[:, :FAM_PROMPT]
+    enc = {}
+    if frames is not None:
+        _sync(device)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            whs.encode(cfg, params, frames)
+        _sync(device)
+        enc["encode_s"] = time.perf_counter() - t1
+    short = _greedy(impl16, params, prompts[:, :STATE_PROMPTS[0]],
+                    STATE_PROMPTS[0] + FAM_NEW, device, frames)[3]
+    dec16, new, per_token_ms, state, busy_ms = _greedy(
+        impl16, params, prompts, FAM_PROMPT + FAM_NEW, device, frames)
+    seq_tf = torch.cat([prompts, new[:, :-1]], dim=1)
+    fb = {"tokens": seq_tf}
+    if frames is not None:
+        fb["frames"] = frames
+    with torch.no_grad():
+        full16 = impl16.prefill_fn(params, fb).float().cpu().numpy()
+        # the first row alone: how far bf16 rounding alone (another GEMM
+        # shape, no decode) moves the logits through this depth
+        row16 = impl16.prefill_fn(params, {k: v[:1] for k, v in fb.items()})
+        row16 = row16.float().cpu().numpy()
+    t2 = time.perf_counter()
+    dec, full = _teacher_forced(
+        build(cfg16, compute_dtype=torch.float32, device=dev), params,
+        seq_tf, torch.float32, frames)
+    audit_s = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    del params
+    excess = float((np.abs(dec - full) - (MLA_TOL + MLA_TOL
+                                          * np.abs(full))).max())
+    toks = new.cpu().numpy()
+    out = {"layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+           "train": train, "mixer_ms": mixers, **enc,
+           "per_token_ms": per_token_ms,
+           "decode_device_busy_ms_a_token": busy_ms,
+           "decode_device_idle_share": (1.0 - busy_ms / per_token_ms)
+           if busy_ms else None,
+           "state_bytes_a_layer": {STATE_PROMPTS[0]: short,
+                                   FAM_PROMPT: state},
+           "fp32_max_abs_diff": float(np.abs(dec - full).max()),
+           "fp32_teacher_forced_gap": _row_gap(dec, full),
+           "fp32_argmax_agreement": float(
+               (dec.argmax(-1) == full.argmax(-1)).mean()),
+           "bf16_teacher_forced_gap": _row_gap(dec16, full16),
+           "bf16_argmax_agreement": float(
+               (dec16.argmax(-1) == full16.argmax(-1)).mean()),
+           "bf16_prefill_row_vs_batch_gap": _row_gap(row16, full16[:1]),
+           "audit_s": audit_s, "max_memory_allocated": peak}
+    for k, v in out.items():
+        if k not in ("train", "mixer_ms"):
+            print(f"  {k}: {v}")
+    print(f"  fp32 decode vs prefill_fn at {dec.shape[1]} positions: max "
+          f"|diff| {out['fp32_max_abs_diff']:.3e}, row-scaled gap "
+          f"{out['fp32_teacher_forced_gap']:.3e} (tol rtol = atol = "
+          f"{MLA_TOL:g}); bf16 row-scaled gap "
+          f"{out['bf16_teacher_forced_gap']:.3e}")
+    if toks.shape != (FAM_BATCH, FAM_NEW) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab or not np.isfinite(dec16).all():
+        raise AssertionError(f"bad {name} decode output {toks.shape}")
+    for kind in ("mamba", "mlstm", "slstm"):
+        if kind in state and short[kind] != state[kind]:
+            raise AssertionError(f"{kind} state grew with the prompt: "
+                                 f"{short[kind]} -> {state[kind]} B")
+    if not excess <= 0:
+        raise AssertionError(f"fp32 {name} decode logits differ from "
+                             f"prefill_fn's past rtol = atol = {MLA_TOL}")
+    return out
+
+
 def _device_busy_ms(prof) -> tuple[float, list]:
     """Device-side events only (kernels and copies): the host ops that
     launched them carry the same time again."""
@@ -1957,12 +2328,21 @@ def main() -> int:
     ap.add_argument("--mla-layers", type=int, default=1,
                     help="deepseek-v3-671b depth of the MLA phases (the "
                          "full model has 61)")
+    ap.add_argument("--jamba-layers", type=int, default=8,
+                    help="jamba-v0.1-52b depth, a multiple of its 8-layer "
+                         "interleave period (the full model has 32)")
+    ap.add_argument("--xlstm-layers", type=int, default=48,
+                    help="xlstm-1.3b depth, a multiple of 8 (the full "
+                         "model has 48)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.new_tokens < 3 or min(args.layers, args.train_layers,
                                   args.serve_layers, args.moe_train_layers,
                                   args.moe_layers, args.mla_layers) < 1:
         ap.error("needs --new-tokens >= 3 and every --*layers >= 1")
+    if min(args.jamba_layers, args.xlstm_layers) < 8 or \
+            args.jamba_layers % 8 or args.xlstm_layers % 8:
+        ap.error("--jamba-layers and --xlstm-layers take multiples of 8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -2068,6 +2448,12 @@ def main() -> int:
         t = time.perf_counter()
         run_mla_uncached(args, workdir)
         phase_s["mla_offloaded_uncached"] = time.perf_counter() - t
+    families = {}
+    for name in FAM_ARCHS:
+        t = time.perf_counter()
+        families[name] = run_family(name, args)
+        torch.cuda.empty_cache()
+        phase_s[name] = time.perf_counter() - t
     print(f"phase seconds: {phase_s}")
 
     kernels = [{
@@ -2087,7 +2473,9 @@ def main() -> int:
         **ov_timing, "moe_launches": {
             m: a["overflow_launches"]
             for m, a in moe_train["arms"].items()},
-        "resident_launches": resident["overflow_launches"]}, {
+        "resident_launches": resident["overflow_launches"],
+        "family_launches": {n: f["train"]["overflow_launches"]
+                            for n, f in families.items()}}, {
         "name": "fused_adam", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_adam.cu",
         "replaces": "src/repro/kernels/fused_adam.py:72",

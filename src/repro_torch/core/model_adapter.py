@@ -4,13 +4,13 @@ cached decode.
 Port of ``src/repro/core/model_adapter.py``.  The session streams
 *unstacked* per-block parameter dicts (one block on the device at a time);
 this adapter builds them and wires the applies the session runs per unit.
-Restrictions, as in the reference: the config must be layer-homogeneous
-(period 1).  This port covers attention and MLA mixers with dense or MoE
-FFNs; other mixers raise and name the slice that brings them.  The
+Restriction, as in the reference: the config must be layer-homogeneous
+(period 1).  Every mixer (attention, MLA, Mamba, mLSTM, sLSTM) trains,
+evaluates and runs uncached decode, with a dense or MoE FFN.  The
 cached-decode applies (``block_prefill`` / ``block_step`` /
 ``block_verify``, ``kv_shape``) exist for attention mixers only, as in the
-reference: an MLA model trains and runs uncached decode, and a
-``DecodeSpec`` session over it raises.
+reference: over an MLA latent or a recurrent state a ``DecodeSpec``
+session raises.
 
 Expert paging (``expert_paging="all" | "routed"``) splits each MoE block's
 stacked ``(E, ...)`` expert tensors into per-expert params
@@ -40,17 +40,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (gqa_attention, gqa_prefill,
-                                          gqa_step, gqa_verify,
-                                          mla_attention)
+from repro_torch.models.attention import gqa_prefill, gqa_step, gqa_verify
 from repro_torch.models.layers import (cross_entropy, dense, embed_lookup,
                                        fan_in_init, lm_logits,
                                        resolve_device, rms_norm,
                                        split_positions, trunc_normal)
 from repro_torch.models.moe import moe_ffn, ordered_top_k
-from repro_torch.models.transformer import (LATER, apply_ffn, apply_layer,
-                                            ffn_kind, init_layer_params,
-                                            layer_period, mixer_kind)
+from repro_torch.models.transformer import (apply_ffn, apply_layer,
+                                            apply_mixer, ffn_kind,
+                                            init_layer_params, layer_period,
+                                            mixer_kind)
 from .dtypes import to_host, torch_dtype
 from .offload_engine import OffloadableModel, OffloadUnit
 
@@ -60,10 +59,7 @@ def _kinds(cfg: ModelConfig) -> tuple[str, str]:
         raise ValueError(
             f"{cfg.name}: offloaded models require layer-homogeneous "
             f"configs (period==1); got period={layer_period(cfg)}")
-    kinds = (mixer_kind(cfg, 0), ffn_kind(cfg, 0))
-    if kinds[0] not in ("attn", "mla"):
-        raise NotImplementedError(f"{cfg.name}: mixer {kinds[0]!r} {LATER}")
-    return kinds
+    return mixer_kind(cfg, 0), ffn_kind(cfg, 0)
 
 
 def _expert_names(x: int) -> tuple[str, str, str]:
@@ -208,8 +204,9 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
         applies.update(_paged_applies(cfg, kinds[0]))
     if kinds[0] != "attn":
         # cached decode takes attention mixers only, as in the reference
-        # (its MLA latent cache is the resident model's): keep the applies
-        # of the train and uncached paths
+        # (the MLA latent and the recurrent states are the resident
+        # model's caches): keep the applies of the train and uncached
+        # paths
         applies = {k: v for k, v in applies.items()
                    if k in ("block_route", "block_moe", "block_moe_bwd")}
     return OffloadableModel(units=own, embed_apply=embed_apply,
@@ -239,9 +236,7 @@ def _paged_applies(cfg: ModelConfig, mk: str) -> dict:
 
     def mixer_half(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
-        if mk == "mla":
-            return h + mla_attention(params, hn, cfg)
-        return h + gqa_attention(params, hn, cfg)
+        return h + apply_mixer(cfg, mk, params, hn)
 
     def block_route(params, h):
         hmid = mixer_half(params, h)

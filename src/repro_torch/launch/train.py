@@ -105,6 +105,9 @@ def run_resident(cfg, args) -> None:
     if cfg.prefix_len:
         extra["image_embeds"] = torch.ones((b, cfg.prefix_len, cfg.d_model),
                                            dtype=torch.bfloat16, device=dev)
+    if cfg.family == "audio":        # the stub frontend's frame embeddings
+        extra["frames"] = torch.ones((b, cfg.encoder_seq, cfg.d_model),
+                                     dtype=torch.bfloat16, device=dev)
     dl = DataLoader(SyntheticTextDataset(vocab=cfg.vocab, seed=0),
                     batch=b, seq_len=s)
 

@@ -1,9 +1,8 @@
 """GQA (optionally qk-norm, sliding-window, bidirectional-prefix) and MLA
 attention on torch tensors.
 
-Port of ``src/repro/models/attention.py`` less ``cross_attention``
-(whisper's, a later slice).  Activations are (batch, seq, ...) as in the
-reference; weights are plain dicts.
+Port of ``src/repro/models/attention.py``.  Activations are (batch, seq,
+...) as in the reference; weights are plain dicts.
 
 * :func:`gqa_prefill` runs the prompt's causal self-attention through
   :func:`attention_scores`, as the reference's does: the cached prefill
@@ -28,6 +27,7 @@ reference; weights are plain dicts.
   caller.
 * MLA (DeepSeek-V3): :func:`mla_project_q`, :func:`mla_compress_kv` (the
   cached latent), :func:`mla_expand_kv` and :func:`mla_attention`.
+* :func:`cross_attention` is whisper's decoder-to-encoder attention.
 """
 
 from __future__ import annotations
@@ -404,3 +404,20 @@ def mla_decode(params, x, cfg, cache, cache_len):
     out = _einsum("bhqk,bkhd->bqhd", probs, v).to(x.dtype)
     out = dense(out.reshape(b, 1, -1), params["attn.w_o"])
     return out, {"ckv": ckv}
+
+
+def cross_attention(params, x, memory, cfg):
+    """Decoder-to-encoder attention (whisper): no rope, no mask.
+    x: (B, S, D) queries, memory: (B, S_mem, D) encoder output."""
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    q = dense(x, params["xattn.w_q"]).reshape(b, s, cfg.n_heads,
+                                              cfg.head_dim)
+    k = dense(memory, params["xattn.w_k"]).reshape(b, sm, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    v = dense(memory, params["xattn.w_v"]).reshape(b, sm, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    out = attention_scores(q, k, v, causal=False)
+    return dense(out.reshape(b, s, -1), params["xattn.w_o"])

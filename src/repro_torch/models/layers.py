@@ -92,6 +92,16 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def sinusoidal_positions(n_pos: int, dim: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal embeddings, the reference's numpy fp32
+    table: (n_pos, dim), sines then cosines."""
+    log_timescale = math.log(10_000.0) / (dim // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(dim // 2))
+    scaled = np.arange(n_pos)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(
+        np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -153,3 +163,57 @@ def fan_in_std(shape) -> float:
 def fan_in_init(generator: torch.Generator, shape, dtype=torch.float32):
     """1/sqrt(fan_in) trunc-normal; fan-in is the second-to-last axis."""
     return trunc_normal(generator, shape, fan_in_std(shape), dtype)
+
+
+def generator_of(generator_or_seed, device) -> torch.Generator:
+    """The generator given, or a new one on ``device`` seeded with the
+    int given."""
+    if isinstance(generator_or_seed, torch.Generator):
+        return generator_or_seed
+    return torch.Generator(device=device).manual_seed(int(generator_or_seed))
+
+
+# Per-tensor initialisers ``init(generator, out) -> out``: each fills the
+# tensor it is given in place (a layer's tensor, or one group's slice of a
+# stacked one), so the period-stacked and the per-block draws share them.
+
+def fan_in_(generator: torch.Generator, out, scale: float = 1.0):
+    """``scale`` × 1/sqrt(fan_in) trunc-normal (fan-in from out's shape)."""
+    return trunc_normal_(generator, out, scale * fan_in_std(out.shape))
+
+
+def zeros_(generator: torch.Generator, out):
+    return out.zero_()
+
+
+def full_(value: float):
+    """An initialiser filling every element with ``value``."""
+    def fill(generator: torch.Generator, out):
+        return out.fill_(value)
+    return fill
+
+
+def draw_specs(generator: torch.Generator, specs, dtype=torch.float32, *,
+               place=None) -> dict:
+    """``{name: tensor}`` of ``(name, shape, init)`` specs, each drawn in
+    order on the generator's device; ``place`` maps each tensor as soon as
+    it is drawn."""
+    out = {}
+    for name, shape, init in specs:
+        t = init(generator, torch.empty(shape, dtype=dtype,
+                                        device=generator.device))
+        out[name] = t if place is None else place(t)
+    return out
+
+
+def draw_stacked(generator: torch.Generator, specs, n: int,
+                 dtype=torch.float32) -> dict:
+    """The specs stacked over a leading axis of ``n`` layers: each tensor
+    allocated once and drawn in place, layer by layer in spec order."""
+    out = {name: torch.empty((n, *shape), dtype=dtype,
+                             device=generator.device)
+           for name, shape, _init in specs}
+    for g in range(n):
+        for name, _shape, init in specs:
+            init(generator, out[name][g])
+    return out

@@ -10,13 +10,13 @@ Decode semantics per family:
 
 * attention families — KV cache (rolling window when sliding_window>0),
 * MLA — compressed-latent cache,
+* SSM / hybrid — constant-size recurrent state (+ KV for the attention
+  layers of a hybrid),
+* whisper (audio) — decoder self-attention KV + the cross K/V computed
+  once from the encoder memory,
 * ``long_500k`` on dense/MoE/VLM/hybrid archs uses the sliding-window
   variant (window :data:`LONG_CONTEXT_WINDOW`), applied by
   :func:`variant_for_shape`.
-
-Whisper (the audio family) and the Mamba/xLSTM mixers come with a later
-slice: ``build`` refuses the audio family, and the other mixers raise at
-their first use.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from . import transformer as tfm
+from . import whisper as whs
 from .layers import resolve_device
 
 LONG_CONTEXT_WINDOW = 8192
@@ -68,26 +69,37 @@ class ModelImpl:
     init_params: Callable          # (generator or seed) -> params
     loss_fn: Callable              # (params, batch) -> scalar
     prefill_fn: Callable           # (params, batch) -> logits
-    init_cache: Callable           # (batch, cache_seq, dtype) -> cache
+    init_cache: Callable           # (batch, cache_seq, dtype, device=)
     decode_fn: Callable            # (params, cache, tokens, cache_len)
     input_specs: Callable          # (shape) -> batch dict of TensorSpec
 
     def decode_args_specs(self, shape: InputShape, dtype=torch.bfloat16):
-        """(cache_specs, tokens_spec, cache_len_spec) of a serve step."""
-        cache = tfm.init_cache(self.cfg, shape.global_batch, shape.seq_len,
-                               dtype, device="meta")
-        cache_specs = tuple({k: TensorSpec(tuple(v.shape), v.dtype)
-                             for k, v in c.items()} for c in cache)
-        return (cache_specs,
+        """(cache_specs, tokens_spec, cache_len_spec) of a serve step: the
+        cache tree's structure with a TensorSpec at each leaf, from the
+        cache built on the meta device (no memory)."""
+        cache = self.init_cache(shape.global_batch, shape.seq_len, dtype,
+                                device="meta")
+        return (_specs_of(cache),
                 TensorSpec((shape.global_batch, 1), torch.int32),
                 TensorSpec((), torch.int32))
+
+
+def _specs_of(tree):
+    if isinstance(tree, dict):
+        return {k: _specs_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_specs_of(v) for v in tree)
+    return TensorSpec(tuple(tree.shape), tree.dtype)
 
 
 def _lm_input_specs(cfg: ModelConfig, shape: InputShape,
                     compute_dtype=torch.bfloat16) -> dict:
     b, s = shape.global_batch, shape.seq_len
     specs = {}
-    if cfg.prefix_len:
+    if cfg.family == "audio":
+        specs["frames"] = TensorSpec((b, cfg.encoder_seq, cfg.d_model),
+                                     compute_dtype)
+    elif cfg.prefix_len:
         specs["image_embeds"] = TensorSpec((b, cfg.prefix_len, cfg.d_model),
                                            compute_dtype)
         s = s - cfg.prefix_len      # image tokens count toward the context
@@ -101,11 +113,9 @@ def build(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
           device="cuda") -> ModelImpl:
     """The resident model's functions for ``cfg`` on ``device`` (where
     ``init_params`` draws from a seed and ``init_cache`` allocates)."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: whisper (the audio family) is not ported yet; it "
-            f"comes with a later model-zoo slice")
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        return _build_whisper(cfg, compute_dtype, remat, dev)
 
     def loss_fn(params, batch):
         return tfm.lm_loss(cfg, params, batch, compute_dtype=compute_dtype,
@@ -128,10 +138,31 @@ def build(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             generator_or_seed, cfg, device=dev),
         loss_fn=loss_fn,
         prefill_fn=prefill_fn,
-        init_cache=lambda b, s, dtype=torch.bfloat16:
-            tfm.init_cache(cfg, b, s, dtype, device=dev),
+        init_cache=lambda b, s, dtype=torch.bfloat16, device=dev:
+            tfm.init_cache(cfg, b, s, dtype, device=device),
         decode_fn=lambda params, cache, tokens, cache_len:
             tfm.decode_step(cfg, params, cache, tokens, cache_len,
                             compute_dtype=compute_dtype),
+        input_specs=lambda shape: _lm_input_specs(cfg, shape, compute_dtype),
+    )
+
+
+def _build_whisper(cfg: ModelConfig, compute_dtype, remat: bool,
+                   dev: torch.device) -> ModelImpl:
+    """The audio family: whisper's encoder-decoder.  The serve step needs a
+    cache whose cross K/V were filled by ``whisper.prefill_cross_cache``."""
+    return ModelImpl(
+        cfg=cfg,
+        init_params=lambda generator_or_seed: whs.init_whisper_params(
+            generator_or_seed, cfg, device=dev),
+        loss_fn=lambda params, batch: whs.whisper_loss(
+            cfg, params, batch, compute_dtype=compute_dtype, remat=remat),
+        prefill_fn=lambda params, batch: whs.whisper_logits(
+            cfg, params, batch, compute_dtype=compute_dtype, remat=remat),
+        init_cache=lambda b, s, dtype=torch.bfloat16, device=dev:
+            whs.init_whisper_cache(cfg, b, s, dtype, device=device),
+        decode_fn=lambda params, cache, tokens, cache_len:
+            whs.whisper_decode_step(cfg, params, cache, tokens, cache_len,
+                                    compute_dtype=compute_dtype),
         input_specs=lambda shape: _lm_input_specs(cfg, shape, compute_dtype),
     )

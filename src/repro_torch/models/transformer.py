@@ -1,10 +1,10 @@
 """The decoder LM on torch tensors: per-layer pieces and the resident model.
 
-Port of ``src/repro/models/transformer.py`` for the families this port
-runs: attention (GQA, sliding-window, bidirectional VLM prefix) and MLA
-mixers with dense or MoE FFNs, and DeepSeek's multi-token-prediction
-(MTP) head.  Mamba and xLSTM mixers raise and name the slice that brings
-them.
+Port of ``src/repro/models/transformer.py``: attention (GQA,
+sliding-window, bidirectional VLM prefix), MLA, Mamba and xLSTM
+(mLSTM/sLSTM) mixers with dense or MoE FFNs, and DeepSeek's
+multi-token-prediction (MTP) head.  Whisper's encoder-decoder lives in
+:mod:`repro_torch.models.whisper` on the same blocks.
 
 * Per layer: the taxonomy (:func:`mixer_kind`, :func:`ffn_kind`,
   :func:`layer_period`), :func:`init_layer_params` (the reference's
@@ -31,14 +31,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from . import mamba as mamba_mod
+from . import xlstm as xlstm_mod
 from .attention import gqa_attention, gqa_decode, mla_attention, mla_decode
-from .layers import (cross_entropy, dense, embed_lookup, fan_in_std,
-                     gated_mlp, lm_logits, rms_norm, trunc_normal_)
+from .layers import (cross_entropy, dense, draw_specs, draw_stacked,
+                     embed_lookup, fan_in_, gated_mlp, generator_of,
+                     lm_logits, rms_norm, trunc_normal_, zeros_)
 from .moe import moe_ffn
-
-LATER = ("is not ported yet: the PyTorch port runs attention and MLA "
-         "mixers with dense or MoE FFNs (Mamba and xLSTM come with a later "
-         "model-zoo slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -69,70 +68,66 @@ def layer_period(cfg: ModelConfig) -> int:
     return min(p, cfg.n_layers)
 
 
-def _ported(mk: str) -> None:
-    if mk not in ("attn", "mla"):
-        raise NotImplementedError(f"mixer {mk!r} {LATER}")
-
-
 # ---------------------------------------------------------------------------
 # Per-layer init
 # ---------------------------------------------------------------------------
 
 def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
-    """``(name, shape, drawn)`` of one layer's parameters in the
-    reference's order; ``drawn`` ones are fan-in trunc-normal, the rest
-    (norm weights) zeros."""
+    """``(name, shape, init)`` of one layer's parameters in the
+    reference's order; ``init(generator, out)`` fills a tensor of that
+    shape in place (:func:`~repro_torch.models.layers.fan_in_`,
+    :func:`~repro_torch.models.layers.zeros_` for norm weights, or a
+    mixer's own constants)."""
     mk, fk = mixer_kind(cfg, layer), ffn_kind(cfg, layer)
-    _ported(mk)
     d = cfg.d_model
-    specs = [("norm_mixer", (d,), False)]
+    specs = [("norm_mixer", (d,), zeros_)]
     if mk == "attn":
-        specs += [("attn.w_q", (d, cfg.q_dim), True),
-                  ("attn.w_k", (d, cfg.kv_dim), True),
-                  ("attn.w_v", (d, cfg.kv_dim), True),
-                  ("attn.w_o", (cfg.q_dim, d), True)]
+        specs += [("attn.w_q", (d, cfg.q_dim), fan_in_),
+                  ("attn.w_k", (d, cfg.kv_dim), fan_in_),
+                  ("attn.w_v", (d, cfg.kv_dim), fan_in_),
+                  ("attn.w_o", (cfg.q_dim, d), fan_in_)]
         if cfg.qk_norm:
-            specs += [("attn.q_norm", (cfg.head_dim,), False),
-                      ("attn.k_norm", (cfg.head_dim,), False)]
-    else:
+            specs += [("attn.q_norm", (cfg.head_dim,), zeros_),
+                      ("attn.k_norm", (cfg.head_dim,), zeros_)]
+    elif mk == "mla":
         m = cfg.mla
         qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
         specs += [
-            ("attn.w_dq", (d, m.q_lora_rank), True),
-            ("attn.q_lat_norm", (m.q_lora_rank,), False),
-            ("attn.w_uq", (m.q_lora_rank, cfg.n_heads * qk_head), True),
-            ("attn.w_dkv", (d, m.kv_lora_rank + m.qk_rope_head_dim), True),
-            ("attn.kv_lat_norm", (m.kv_lora_rank,), False),
+            ("attn.w_dq", (d, m.q_lora_rank), fan_in_),
+            ("attn.q_lat_norm", (m.q_lora_rank,), zeros_),
+            ("attn.w_uq", (m.q_lora_rank, cfg.n_heads * qk_head), fan_in_),
+            ("attn.w_dkv", (d, m.kv_lora_rank + m.qk_rope_head_dim),
+             fan_in_),
+            ("attn.kv_lat_norm", (m.kv_lora_rank,), zeros_),
             ("attn.w_ukv", (m.kv_lora_rank,
                             cfg.n_heads * (m.qk_nope_head_dim
-                                           + m.v_head_dim)), True),
-            ("attn.w_o", (cfg.n_heads * m.v_head_dim, d), True)]
+                                           + m.v_head_dim)), fan_in_),
+            ("attn.w_o", (cfg.n_heads * m.v_head_dim, d), fan_in_)]
+    elif mk == "mamba":
+        specs += mamba_mod.param_specs(cfg)
+    elif mk == "mlstm":
+        specs += xlstm_mod.mlstm_param_specs(cfg)
+    else:
+        specs += xlstm_mod.slstm_param_specs(cfg)
     if fk != "none":
-        specs.append(("norm_ffn", (d,), False))
+        specs.append(("norm_ffn", (d,), zeros_))
     if fk == "dense":
         if cfg.gated_act in ("swiglu", "geglu"):
-            specs.append(("ffn.w_gate", (d, cfg.d_ff), True))
-        specs += [("ffn.w_up", (d, cfg.d_ff), True),
-                  ("ffn.w_down", (cfg.d_ff, d), True)]
+            specs.append(("ffn.w_gate", (d, cfg.d_ff), fan_in_))
+        specs += [("ffn.w_up", (d, cfg.d_ff), fan_in_),
+                  ("ffn.w_down", (cfg.d_ff, d), fan_in_)]
     elif fk == "moe":
         e = cfg.moe
-        specs += [("moe.w_router", (d, e.n_experts), True),
-                  ("moe.w_gate", (e.n_experts, d, e.d_ff_expert), True),
-                  ("moe.w_up", (e.n_experts, d, e.d_ff_expert), True),
-                  ("moe.w_down", (e.n_experts, e.d_ff_expert, d), True)]
+        specs += [("moe.w_router", (d, e.n_experts), fan_in_),
+                  ("moe.w_gate", (e.n_experts, d, e.d_ff_expert), fan_in_),
+                  ("moe.w_up", (e.n_experts, d, e.d_ff_expert), fan_in_),
+                  ("moe.w_down", (e.n_experts, e.d_ff_expert, d), fan_in_)]
         if e.n_shared:
             f = e.n_shared * e.d_ff_expert
-            specs += [("moe.shared_gate", (d, f), True),
-                      ("moe.shared_up", (d, f), True),
-                      ("moe.shared_down", (f, d), True)]
+            specs += [("moe.shared_gate", (d, f), fan_in_),
+                      ("moe.shared_up", (d, f), fan_in_),
+                      ("moe.shared_down", (f, d), fan_in_)]
     return specs
-
-
-def _fill_(generator: torch.Generator, out: torch.Tensor, drawn: bool,
-           shape) -> torch.Tensor:
-    if drawn:
-        return trunc_normal_(generator, out, fan_in_std(shape))
-    return out.zero_()
 
 
 def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
@@ -142,19 +137,8 @@ def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
     device) in the reference's parameter order.  ``place`` maps each
     tensor as soon as it is drawn (the offload adapter moves each to the
     host there, so no whole block is ever held on the device)."""
-    out = {}
-    for name, shape, drawn in layer_param_specs(cfg, layer):
-        t = _fill_(generator, torch.empty(shape, dtype=dtype,
-                                          device=generator.device),
-                   drawn, shape)
-        out[name] = t if place is None else place(t)
-    return out
-
-
-def _generator(generator_or_seed, device) -> torch.Generator:
-    if isinstance(generator_or_seed, torch.Generator):
-        return generator_or_seed
-    return torch.Generator(device=device).manual_seed(int(generator_or_seed))
+    return draw_specs(generator, layer_param_specs(cfg, layer), dtype,
+                      place=place)
 
 
 def init_params(generator_or_seed, cfg: ModelConfig, dtype=torch.float32,
@@ -166,7 +150,7 @@ def init_params(generator_or_seed, cfg: ModelConfig, dtype=torch.float32,
     ``mtp_proj``.  A seed draws from a generator on ``device``; a
     generator draws on its own device.  Each tensor is drawn in place in
     ``dtype``, so the peak is the tree itself."""
-    gen = _generator(generator_or_seed, device)
+    gen = generator_of(generator_or_seed, device)
     dev = gen.device
     p = layer_period(cfg)
     n_groups = cfg.n_layers // p
@@ -180,22 +164,13 @@ def init_params(generator_or_seed, cfg: ModelConfig, dtype=torch.float32,
                                            0.02),
                     "final_norm": new((cfg.d_model,)).zero_()}
     if not cfg.tie_embeddings:
-        shape = (cfg.d_model, cfg.vocab)
-        params["head"] = trunc_normal_(gen, new(shape), fan_in_std(shape))
-    groups = []
-    for j in range(p):
-        specs = layer_param_specs(cfg, j)
-        stacked = {name: new((n_groups, *shape)) for name, shape, _ in specs}
-        for g in range(n_groups):
-            for name, shape, drawn in specs:
-                _fill_(gen, stacked[name][g], drawn, shape)
-        groups.append(stacked)
-    params["groups"] = groups
+        params["head"] = fan_in_(gen, new((cfg.d_model, cfg.vocab)))
+    params["groups"] = [draw_stacked(gen, layer_param_specs(cfg, j),
+                                     n_groups, dtype) for j in range(p)]
     if cfg.mtp:
         params["mtp"] = init_layer_params(gen, cfg, cfg.n_layers - 1, dtype)
         params["mtp_norm"] = new((cfg.d_model,)).zero_()
-        shape = (2 * cfg.d_model, cfg.d_model)
-        params["mtp_proj"] = trunc_normal_(gen, new(shape), fan_in_std(shape))
+        params["mtp_proj"] = fan_in_(gen, new((2 * cfg.d_model, cfg.d_model)))
     return params
 
 
@@ -247,14 +222,27 @@ def apply_layer(cfg: ModelConfig, kinds: tuple[str, str], params, h, *,
                 prefix_len: int = 0, causal: bool = True):
     """Pre-norm residual block: mixer + FFN.  Returns ``(h, aux)``."""
     mk, fk = kinds
-    _ported(mk)
     hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
-    if mk == "attn":
-        mix = gqa_attention(params, hn, cfg, causal=causal,
-                            prefix_len=prefix_len)
-    else:
-        mix = mla_attention(params, hn, cfg, causal=causal)
+    mix = apply_mixer(cfg, mk, params, hn, prefix_len=prefix_len,
+                      causal=causal)
     return apply_ffn(cfg, fk, params, h + mix)
+
+
+def apply_mixer(cfg: ModelConfig, mk: str, params, hn, *,
+                prefix_len: int = 0, causal: bool = True):
+    """The mixer half of a block over normed inputs hn: (B, S, D)."""
+    if mk == "attn":
+        return gqa_attention(params, hn, cfg, causal=causal,
+                             prefix_len=prefix_len)
+    if mk == "mla":
+        return mla_attention(params, hn, cfg, causal=causal)
+    if mk == "mamba":
+        return mamba_mod.mamba_mixer(params, hn, cfg)
+    if mk == "mlstm":
+        return xlstm_mod.mlstm_mixer(params, hn, cfg)
+    if mk == "slstm":
+        return xlstm_mod.slstm_mixer(params, hn, cfg)
+    raise ValueError(mk)
 
 
 def _n_groups(params) -> int:
@@ -349,20 +337,37 @@ def lm_loss(cfg: ModelConfig, params, batch, *, compute_dtype=torch.bfloat16,
 
 def init_layer_cache(cfg: ModelConfig, layer: int, batch: int,
                      cache_seq: int, dtype=torch.bfloat16, device="cuda"):
-    """One layer's zero cache: K/V for attention (a rolling window of
-    ``sliding_window`` slots when set), the packed latent for MLA."""
+    """One layer's initial cache: K/V for attention (a rolling window of
+    ``sliding_window`` slots when set), the packed latent for MLA, the
+    conv window (``dtype``) and SSM state (fp32) for Mamba, the fp32
+    matrix state (C, n) for mLSTM and (h, c, n) for sLSTM (n starts at
+    ones).  The recurrent states do not grow with ``cache_seq``."""
     mk = mixer_kind(cfg, layer)
-    _ported(mk)
     s = min(cache_seq, cfg.sliding_window) if cfg.sliding_window \
         else cache_seq
+    f32 = dict(dtype=torch.float32, device=device)
     if mk == "attn":
         shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    m = cfg.mla
-    return {"ckv": torch.zeros((batch, s, m.kv_lora_rank
-                                + m.qk_rope_head_dim), dtype=dtype,
-                               device=device)}
+    if mk == "mla":
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, s, m.kv_lora_rank
+                                    + m.qk_rope_head_dim), dtype=dtype,
+                                   device=device)}
+    if mk == "mamba":
+        ssm = cfg.ssm
+        di = ssm.d_inner(cfg.d_model)
+        return {"conv": torch.zeros((batch, ssm.conv_kernel - 1, di),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((batch, di, ssm.d_state), **f32)}
+    if mk == "mlstm":
+        dk = cfg.ssm.d_inner(cfg.d_model) // cfg.n_heads
+        return {"c": torch.zeros((batch, cfg.n_heads, dk, dk), **f32),
+                "n": torch.zeros((batch, cfg.n_heads, dk), **f32)}
+    shape = (batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    return {"h": torch.zeros(shape, **f32), "c": torch.zeros(shape, **f32),
+            "n": torch.ones(shape, **f32)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_seq: int,
@@ -380,14 +385,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_seq: int,
 
 
 def apply_layer_decode(cfg, kinds, params, h, cache, cache_len):
-    """One block's one-token step.  Returns ``(h, new_cache)``."""
+    """One block's one-token step.  Returns ``(h, new_cache)``; a
+    recurrent mixer's new state replaces each cache tensor whole."""
     mk, fk = kinds
-    _ported(mk)
     hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
     if mk == "attn":
         mix, cache = gqa_decode(params, hn, cfg, cache, cache_len)
-    else:
+    elif mk == "mla":
         mix, cache = mla_decode(params, hn, cfg, cache, cache_len)
+    elif mk == "mamba":
+        mix, cache = mamba_mod.mamba_decode(params, hn, cfg, cache)
+    elif mk == "mlstm":
+        mix, cache = xlstm_mod.mlstm_decode(params, hn, cfg, cache)
+    elif mk == "slstm":
+        mix, cache = xlstm_mod.slstm_decode(params, hn, cfg, cache)
+    else:
+        raise ValueError(mk)
     h, _aux = apply_ffn(cfg, fk, params, h + mix)
     return h, cache
 

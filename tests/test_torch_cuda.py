@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the page-locked allocator backings, cached and uncached decode,
-continuous batching, speculative verify, the training step and MoE expert
-paging on the device.
+continuous batching, speculative verify, the training step, MoE expert
+paging and the resident model families (MLA, jamba, xLSTM, whisper) on
+the device.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device.  The file imports neither JAX nor the reference package, so it
@@ -790,3 +791,101 @@ def test_mla_routed_losses_equal_all_on_the_card(cuda, tmp_path):
                          for _ in range(2)]
     assert out["routed"] == out["all"]
     assert out["all"][1] < out["all"][0]
+
+
+# -- the recurrent and encoder-decoder families on the resident path -------
+
+FAMILY_ARCHS = ["jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny"]
+
+
+def _family(arch, device, params=None):
+    """A reduced config's fp32 impl on ``device`` and its params (drawn on
+    the CPU from one seed, or ``params`` moved).  xLSTM gets an sLSTM
+    every second layer, so its 2-layer cut holds one of each mixer; the
+    router capacity is 16 so the MoE prefill drops no token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train.step import tree_map
+    cfg = get_config(arch).reduced()
+    if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, slstm_every=2))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    impl = build(cfg, compute_dtype=torch.float32, device=device)
+    if params is None:
+        params = build(cfg, compute_dtype=torch.float32,
+                       device="cpu").init_params(0)
+    return impl, tree_map(lambda t: t.to(device), params)
+
+
+def _family_batch(cfg, device, s=10):
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, s)))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(np.random.default_rng(10)
+                                           .standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_loss_grads_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """fp32 (TF32 off): the loss, every gradient leaf and ten decode steps'
+    logits on the card within rel 1e-4 of the same port functions on the
+    CPU (of the loss, each leaf's max, each row's max) — the same math
+    in another summation order."""
+    from repro_torch.models import whisper as whs
+    from repro_torch.train import build_train_step
+    from repro_torch.train.step import tree_leaves
+    out, cpu_params = {}, None
+    for device in ("cpu", "cuda"):
+        impl, params = _family(arch, device, cpu_params)
+        cpu_params = cpu_params or params
+        cfg = impl.cfg
+        batch = _family_batch(cfg, device)
+        loss, grads, overflow = build_train_step(impl)(params, batch, 1.0)
+        assert not bool(overflow)
+        with torch.no_grad():
+            cache = impl.init_cache(2, 10, dtype=torch.float32)
+            if cfg.family == "audio":
+                cache = whs.prefill_cross_cache(
+                    cfg, params, whs.encode(cfg, params, batch["frames"]),
+                    cache)
+            steps = []
+            for t in range(10):
+                logits, cache = impl.decode_fn(params, cache,
+                                               batch["tokens"][:, t:t + 1],
+                                               t)
+                steps.append(logits[:, 0].cpu())
+        out[device] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                       torch.stack(steps, 1).numpy())
+    (lc, gc, dc), (lg, gg, dg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for a, b in zip(gc, gg, strict=True):
+        assert (b - a).abs().max() <= 1e-4 * max(a.abs().max(), 1e-12)
+    scale = np.abs(dc).max(-1, keepdims=True)
+    assert (np.abs(dg - dc) / scale).max() <= 1e-4
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_screen_is_the_plain_verdict(cuda, arch):
+    """The resident train step screens each gradient leaf with one kernel
+    launch, and its verdict equals the plain version's: clean, then with
+    one Inf injected into one leaf."""
+    from repro_torch.train import build_train_step, grads_overflow_flag
+    from repro_torch.train.step import tree_leaves
+    impl, params = _family(arch, "cuda")
+    batch = _family_batch(impl.cfg, "cuda", s=12)
+    before = overflow_flag_cuda_.launches
+    loss, grads, overflow = build_train_step(impl)(params, batch, 1.0)
+    leaves = tree_leaves(grads)
+    assert overflow_flag_cuda_.launches - before == len(leaves)
+    plain = any(bool(overflow_check_plain(g)) for g in leaves)
+    assert bool(overflow) is plain is False
+    leaves[len(leaves) // 2].view(-1)[0] = float("inf")
+    assert bool(grads_overflow_flag(grads)) is True
+    assert any(bool(overflow_check_plain(g)) for g in leaves)
+    assert np.isfinite(float(loss))

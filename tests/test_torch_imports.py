@@ -36,7 +36,8 @@ def test_port_has_modules():
     "serve/scheduler.py", "core/checkpoint.py", "data/pipeline.py",
     "models/moe.py", "core/paged.py", "models/registry.py",
     "models/transformer.py", "train/step.py", "serve/decode.py",
-    "launch/train.py"])
+    "launch/train.py", "models/mamba.py", "models/xlstm.py",
+    "models/whisper.py"])
 def test_training_slice_modules_are_scanned(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
@@ -65,16 +66,30 @@ def test_core_exports_the_reference_names():
 
 @pytest.mark.parametrize("package", ["models", "train", "serve", "data"])
 def test_package_exports_the_reference_names(package):
-    """The resident path's packages export what the reference's do, less
-    the mixers of later slices (whisper, mamba, xlstm) and the sharded
-    prefill builder; the port adds ``TensorSpec`` (its
+    """The resident path's packages export what the reference's do (the
+    model zoo's ``mamba``, ``xlstm`` and ``whisper`` among them), less the
+    sharded prefill builder; the port adds ``TensorSpec`` (its
     ``jax.ShapeDtypeStruct``) and exports ``grads_overflow_flag``."""
     import importlib
     ref = set(importlib.import_module(f"repro.{package}").__all__)
     port = set(importlib.import_module(f"repro_torch.{package}").__all__)
-    later = {"whisper", "mamba", "xlstm"}
     no_counterpart = {"build_prefill_step"}     # a sharded pjit wrapper
     port_only = {"TensorSpec", "grads_overflow_flag"}
-    assert port - port_only == ref - later - no_counterpart, (
-        f"missing {sorted(ref - later - no_counterpart - port)}, extra "
+    assert port - port_only == ref - no_counterpart, (
+        f"missing {sorted(ref - no_counterpart - port)}, extra "
         f"{sorted(port - port_only - ref)}")
+
+
+@pytest.mark.parametrize("name", ["mamba", "xlstm", "whisper"])
+def test_model_zoo_modules_are_the_reference_s(name):
+    """``repro_torch.models`` exposes each recurrent / enc-dec module as
+    ``repro.models`` does, with the reference's public functions."""
+    import repro.models
+    import repro_torch.models
+    ref = getattr(repro.models, name)
+    port = getattr(repro_torch.models, name)
+    public = {n for n in vars(ref) if callable(getattr(ref, n))
+              and not n.startswith("_")
+              and getattr(getattr(ref, n), "__module__", "") == ref.__name__}
+    assert public <= set(vars(port)), sorted(public - set(vars(port)))
+    assert not _imported(pathlib.Path(port.__file__)) & set(FORBIDDEN)

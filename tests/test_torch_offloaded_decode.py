@@ -207,11 +207,14 @@ def test_entry_points_refuse_what_is_not_ported(tmp_store_root):
         OffloadedDecoder(make_offloadable_lm(mla, 0, device="cpu"),
                          _policy(tmp_store_root + "/mla", "float32"),
                          decode=DecodeSpec(**_spec()))
-    # Mamba and xLSTM mixers come with a later slice
+    # a recurrent mixer trains and decodes uncached; its cached decode is
+    # refused as the reference refuses it
     mamba = ModelConfig(**{**KW, "name": "tiny-mamba", "family": "ssm"},
                         ssm=SSMConfig())
-    with pytest.raises(NotImplementedError, match="mamba"):
-        make_offloadable_lm(mamba, 0, device="cpu")
+    with pytest.raises(ValueError, match="cached-decode"):
+        OffloadedDecoder(make_offloadable_lm(mamba, 0, device="cpu"),
+                         _policy(tmp_store_root + "/mamba", "float32"),
+                         decode=DecodeSpec(**_spec()))
     # expert paging needs a MoE FFN to split into pages
     with pytest.raises(ValueError, match="MoE"):
         make_offloadable_lm(TCFG, 0, device="cpu", expert_paging="routed")

@@ -1,10 +1,14 @@
 """The device-resident model path of the port — ``models.registry``,
 ``transformer.lm_loss`` / ``decode_step``, ``train.step``,
 ``serve.decode`` and the launcher — against the reference, over the
-reduced configs of the families the port runs: dense (qwen3-4b), MoE
+reduced configs of the decoder families: dense (qwen3-4b), MoE
 (phi3.5-moe), MLA + MTP (deepseek-v3), VLM with a bidirectional prefix
-(paligemma) and sliding-window (starcoder2, window cut to 8 so a short
-decode rolls the cache).
+(paligemma), sliding-window (starcoder2, window cut to 8 so a short
+decode rolls the cache), the Mamba/attention/MoE hybrid (jamba: one
+8-layer interleave period) and xLSTM (an sLSTM every second layer, so the
+2-layer cut holds one mLSTM and one sLSTM; at the published 1 in 8 it
+would hold none).  Whisper's encoder-decoder is in
+``tests/test_torch_whisper.py``.
 
 The reference's ``init_params`` tree goes across as numpy
 (``from_numpy_params``), so both packages run the same weights on the same
@@ -50,14 +54,24 @@ FAMILIES = {"dense": ("qwen3-4b", {}),
             "moe": ("phi3.5-moe-42b-a6.6b", {}),
             "mla": ("deepseek-v3-671b", {}),
             "vlm": ("paligemma-3b", {}),
-            "swa": ("starcoder2-15b", {"sliding_window": 8})}
+            "swa": ("starcoder2-15b", {"sliding_window": 8}),
+            "hybrid": ("jamba-v0.1-52b", {}),
+            "xlstm": ("xlstm-1.3b", {"ssm": {"slstm_every": 2}})}
 B, S = 2, 12
+
+
+def _replace(cfg, kw):
+    """``cfg`` with ``kw`` applied; a dict value replaces fields of that
+    nested config."""
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v)
+          if isinstance(v, dict) else v for k, v in kw.items()}
+    return dataclasses.replace(cfg, **kw)
 
 
 def _cfgs(family, capacity=None):
     arch, kw = FAMILIES[family]
-    jcfg = dataclasses.replace(JARCHS[arch].reduced(), **kw)
-    tcfg = dataclasses.replace(ARCHS[arch].reduced(), **kw)
+    jcfg = _replace(JARCHS[arch].reduced(), kw)
+    tcfg = _replace(ARCHS[arch].reduced(), kw)
     if capacity and jcfg.moe is not None:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
             jcfg.moe, capacity_factor=capacity))
@@ -153,7 +167,8 @@ def test_train_step_grads_match_jax_grad(family):
         assert np.abs(got.numpy() - ref).max() <= 1e-5 * scale, path
 
 
-@pytest.mark.parametrize("family", ["dense", "mla", "moe", "swa"])
+@pytest.mark.parametrize("family", ["dense", "mla", "moe", "swa", "hybrid",
+                                    "xlstm"])
 def test_decode_step_matches_forward_and_reference(family):
     jimpl, jparams, timpl, tparams = _reference(family, capacity=16.0)
     s = 10            # past the sliding window of 8: the cache rolls
@@ -188,7 +203,7 @@ def test_decode_step_matches_forward_and_reference(family):
         assert (np.abs(got - ref) / scale).max() <= 1e-5
 
 
-@pytest.mark.parametrize("family", ["mla", "swa"])
+@pytest.mark.parametrize("family", ["mla", "swa", "hybrid", "xlstm"])
 def test_verify_step_is_the_serve_chain_bitwise(family):
     _j, _jp, timpl, tparams = _reference(family)
     shape = InputShape("t", 12, B, "decode")
@@ -240,13 +255,27 @@ def test_variant_for_shape_and_skips():
         ok, reason = shape_supported(cfg, long)
         if arch == "whisper-tiny":
             assert not ok and "enc-dec" in reason
-            with pytest.raises(NotImplementedError, match="whisper"):
-                build(cfg, device="cpu")
             continue
         v = variant_for_shape(cfg, long)
         if cfg.family in ("dense", "moe", "vlm", "hybrid"):
             assert v.sliding_window > 0, f"{arch} needs sub-quadratic decode"
         assert variant_for_shape(cfg, INPUT_SHAPES["decode_32k"]) == cfg
+
+
+def test_build_takes_every_architecture():
+    """No family is refused: each arch builds, and its reduced config
+    draws a tree and a cache (on the meta device, no memory)."""
+    assert set(ARCHS) == set(JARCHS)
+    for arch, cfg in ARCHS.items():
+        impl = build(cfg, device="cpu")
+        shape = InputShape("t", 16, 2, "decode")
+        cache_specs, tok, _len = impl.decode_args_specs(shape)
+        assert tok == TensorSpec((2, 1), torch.int32), arch
+        small = build(cfg.reduced(), compute_dtype=torch.float32,
+                      device="cpu")
+        assert small.init_params(0)["embed"].shape == (
+            cfg.reduced().vocab, cfg.reduced().d_model), arch
+        assert cache_specs, arch
 
 
 def test_input_and_batch_specs():
