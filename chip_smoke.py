@@ -127,7 +127,20 @@ Phases (each raises on failure; the script exits non-zero):
     rtol = atol = 2e-3 of ``prefill_fn``'s (router capacity 16); each
     recurrent mixer (and Mamba's scan alone) is timed at the training
     shape;
-12. print the ``kernels`` JSON line, the card line, and the result line.
+12. the dry run against the card: each full-width resident run above
+    (phase 10a's qwen3-4b training, the three families' training and
+    decode, phase 10b's MLA decode) is run once more on the meta device
+    through ``repro_torch.launch.dryrun.lower_pair`` with the same config,
+    depth, shape and dtypes — in a process of its own started at the
+    beginning, since it needs no card — and one line a run prints its
+    flops, its eager op-by-op bytes, its predicted peak (argument + temp
+    + output) beside the step's measured ``max_memory_allocated`` above
+    the phase's base, the roofline floor (the larger of flops over 989
+    TFLOP/s and bytes over 3.35 TB/s), the measured step or token and
+    their ratio, ``roofline_share``; every training run's predicted peak
+    must be within 10 % of the measured one (the rows also go to
+    ``chiprun_out/dry_vs_card.json``);
+13. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
@@ -136,9 +149,11 @@ Needs one CUDA device.  Kernel builds and the SSD stores live under
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import resource
 import shutil
@@ -171,6 +186,8 @@ from repro_torch.kernels.overflow_check import (  # noqa: E402
     overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     attention_path, swa_attention_cuda, swa_attention_plain)
+from repro_torch.launch.dryrun import lower_pair  # noqa: E402
+from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.launch.train import resident_loop  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
@@ -185,8 +202,6 @@ from repro_torch.serve import (OffloadedDecoder, Request,  # noqa: E402
 from repro_torch.train import build_train_step  # noqa: E402
 from repro_torch.train.step import tree_leaves, tree_map  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 # first-token logits vs the device-resident plain forward: 8 bf16 ULPs of
 # each row's max logit, the repo's teacher-forced decode audit bound
 # (benchmarks/bench_decode.py); a kernel or cache fault moves logits at
@@ -319,10 +334,10 @@ def time_attention(gen, b: int, s: int) -> dict:
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
     nbytes = 2 * (2 * b * h * s * d + 2 * b * kh * s * d)   # q, o, k, v
-    live_pairs = s * (s + 1) // 2                           # causal band
+    live_pairs = ops.live_pairs(s)                          # causal band
     flops = 4 * d * live_pairs * b * h                      # QK^T and PV
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    flops_ms = 1e3 * flops / BF16_FLOPS_PER_S
+    bytes_ms = 1e3 * nbytes / HBM_BW
+    flops_ms = 1e3 * flops / PEAK_FLOPS
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
@@ -481,7 +496,7 @@ def time_overflow(gen) -> dict:
     library_ms = cuda_ms(lambda: torch.isfinite(x).all())
     # one read of each element; a mask and a compare an element are far
     # below the card's integer rate
-    bytes_ms = 1e3 * 4 * n / HBM_BYTES_PER_S
+    bytes_ms = 1e3 * 4 * n / HBM_BW
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bytes_ms, "bound_by": "bytes"}
 
@@ -610,7 +625,7 @@ def time_fused_adam(gen) -> dict:
     # each input read once (16 B), each output written once (12 B of fp32
     # p, m, v and 2 B of bf16 w16); ~40 fp32 operations an element are far
     # below the card's rate
-    bytes_ms = 1e3 * 30 * n / HBM_BYTES_PER_S
+    bytes_ms = 1e3 * 30 * n / HBM_BW
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_w16_ms": library_w16_ms,
             "bound_ms": bytes_ms, "bound_by": "bytes"}
@@ -779,6 +794,28 @@ def run_main_path(args, workdir: str) -> dict:
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def _allocated(device) -> int | None:
+    """Bytes the card holds now (None off the card): a phase's base, taken
+    before it draws its tree."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _step_peak(fn, device, base: int | None):
+    """``(fn(), peak)``: the most the card held while ``fn`` ran, above
+    ``base`` (what the phase found allocated before it began; None off
+    the card)."""
+    if base is None:
+        return fn(), None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
 
 
 def _train_policy(workdir: str, n_params: int, name: str, act=None,
@@ -1647,6 +1684,7 @@ def run_resident_train(host_run: dict, device: str = "cuda") -> dict:
           f"{TRAIN_SEQ}), {RESIDENT_STEPS} SGD steps at lr "
           f"{RESIDENT_LR:g}; {n_params} parameters in the offloaded units")
     dev = torch.device(device)
+    base = _allocated(device)
     params = _resident_tree(cfg, model, dev)
     n_leaves = len(tree_leaves(params))
     impl = build(cfg, device=dev)
@@ -1675,8 +1713,10 @@ def run_resident_train(host_run: dict, device: str = "cuda") -> dict:
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
 
     # the kernel against its plain version on every gradient leaf of one
-    # more step (these launches are not the path's)
-    _loss, grads, overflow = step(params, batch, scaler.scale)
+    # more step (these launches are not the path's), whose peak the dry run
+    # predicts
+    (_loss, grads, overflow), step_peak = _step_peak(
+        lambda: step(params, batch, scaler.scale), device, base)
     leaves = tree_leaves(grads)
     if dev.type == "cuda":
         for g in leaves:
@@ -1690,7 +1730,7 @@ def run_resident_train(host_run: dict, device: str = "cuda") -> dict:
            "overflowed": flags, "step_s": walls,
            "offloaded_step1_loss": offloaded_loss, "loss_rel_diff": loss_rel,
            "gradient_leaves": n_leaves, "overflow_launches": launches,
-           "max_memory_allocated": peak}
+           "max_memory_allocated": peak, "step_peak_bytes": step_peak}
     for k, v in out.items():
         print(f"  {k}: {v}")
     if any(flags) or bool(overflow):
@@ -1783,6 +1823,7 @@ def run_mla_decode(args, device: str = "cuda") -> dict:
     compute over the same bf16 weights."""
     cfg = _mla_config(args.mla_layers, MLA_CAPACITY)
     dev = torch.device(device)
+    base = _allocated(device)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed + 7)
     params = init_params(gen, cfg, torch.bfloat16)
@@ -1828,6 +1869,9 @@ def run_mla_decode(args, device: str = "cuda") -> dict:
         new.append(nxt)
     _sync(device)
     per_token_ms = 1e3 * (time.perf_counter() - t2) / (MLA_NEW - 1)
+    _out, step_peak = _step_peak(
+        lambda: serve(params, cache, nxt[:, None], max_seq - 1), device, base)
+    del _out
     dec16 = torch.stack(steps, dim=1).float().cpu().numpy()
     del cache, steps
     seq = torch.cat([prompts, torch.stack(new[:-1], dim=1)], dim=1)
@@ -1847,6 +1891,7 @@ def run_mla_decode(args, device: str = "cuda") -> dict:
     tokens = torch.stack(new, dim=1).cpu().numpy()
     out = {"mla_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
            "prefill_s": prefill_s, "per_token_ms": per_token_ms,
+           "step_peak_bytes": step_peak,
            "fp32_teacher_forced_gap": _row_gap(dec, full),
            "fp32_max_abs_diff": float(np.abs(dec - full).max()),
            "fp32_argmax_agreement": float(
@@ -1999,14 +2044,16 @@ def _family_config(name: str, args, capacity: float | None = None):
     return cfg
 
 
-def _sgd_steps(impl, params, batch, device: str, profile: bool) -> dict:
+def _sgd_steps(impl, params, batch, device: str, profile: bool,
+               base: int | None = None) -> dict:
     """FAM_STEPS steps of build_train_step with the loss scaler, SGD (lr
     RESIDENT_LR) applied in place to the bf16 tree on each step the scaler
     admits.  (The launcher's ``resident_loop``, phase 10a, returns a new
     tree a step: at jamba's 26.6 GB that third copy beside the tree and
     its gradients does not fit on the card.)  Then the kernel is held to
     its plain version on every gradient leaf of one more step, run under
-    the profiler if ``profile``."""
+    the profiler if ``profile``, whose peak above ``base`` the dry run
+    predicts."""
     step = build_train_step(impl)
     scaler = DynamicLossScaler(scale=1.0)
     leaves = tree_leaves(params)
@@ -2036,7 +2083,8 @@ def _sgd_steps(impl, params, batch, device: str, profile: bool) -> dict:
     # kernels that take it), whose gradients then hold the kernel to its
     # plain version
     with _maybe_profile(on_card and profile) as prof:
-        _loss, grads, overflow = step(params, batch, scaler.scale)
+        (_loss, grads, overflow), step_peak = _step_peak(
+            lambda: step(params, batch, scaler.scale), device, base)
         _sync(device)
     busy_ms, events = _device_busy_ms(prof) if prof else (0.0, [])
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
@@ -2050,7 +2098,7 @@ def _sgd_steps(impl, params, batch, device: str, profile: bool) -> dict:
     del grads, g_leaves
     out = {"losses": losses, "overflowed": flags, "step_s": walls,
            "gradient_leaves": len(leaves), "overflow_launches": launches,
-           "max_memory_allocated": peak,
+           "max_memory_allocated": peak, "step_peak_bytes": step_peak,
            # against the last unprofiled step: the profiler's own cost
            # inflates the profiled one
            "step_device_busy_ms": busy_ms or None,
@@ -2086,11 +2134,13 @@ def _state_bytes(cfg, cache) -> dict:
     return {k: v.pop() for k, v in out.items()}
 
 
-def _greedy(impl, params, prompts, max_seq, device, frames=None):
+def _greedy(impl, params, prompts, max_seq, device, frames=None,
+            base: int | None = None):
     """The prompt through the serve step one token at a time, then
     FAM_NEW - 1 greedy steps.  Returns (logits (B, T, V) of every step on
     the host, new tokens, ms a greedy token, the cache after the
-    prompt's state bytes)."""
+    prompt's state bytes, the device's busy ms a token, and the peak above
+    ``base`` of one more serve step)."""
     serve, _specs = build_serve_step(impl, InputShape(
         "family_decode", max_seq, prompts.shape[0], "decode"))
     cache = _fresh_cache(impl, params, prompts.shape[0], max_seq,
@@ -2121,8 +2171,13 @@ def _greedy(impl, params, prompts, max_seq, device, frames=None):
             _lg, c = serve(params, c, nxt[:, None], max_seq - 1)
         _sync(device)
     busy_ms = _device_busy_ms(prof)[0] / 4 if on_card else None
+    del c, _lg
+    _out, step_peak = _step_peak(
+        lambda: serve(params, cache, nxt[:, None], max_seq - 1), device,
+        base)
+    del _out
     return (torch.stack(steps, dim=1).float().cpu().numpy(),
-            torch.stack(new, dim=1), per_token_ms, state, busy_ms)
+            torch.stack(new, dim=1), per_token_ms, state, busy_ms, step_peak)
 
 
 def _time_mixer(fn, params, x, device, reps: int = 3) -> tuple:
@@ -2193,6 +2248,7 @@ def run_family(name: str, args, device: str = "cuda") -> dict:
     cfg16 = _family_config(name, args, MLA_CAPACITY)
     dev = torch.device(device)
     seed = args.seed + {"jamba": 13, "xlstm": 14, "whisper": 15}[name]
+    base = _allocated(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
@@ -2222,7 +2278,7 @@ def run_family(name: str, args, device: str = "cuda") -> dict:
     # step, and processing that trace took the phase from 54 s to 219 s
     # (NVIDIA H100 80GB HBM3, 700 W)
     train = _sgd_steps(build(cfg, device=dev), params, batch, device,
-                       profile=name != "xlstm")
+                       profile=name != "xlstm", base=base)
     for k, v in train.items():
         print(f"  {k}: {v}")
     mixers = {} if cfg.family == "audio" else \
@@ -2243,8 +2299,8 @@ def run_family(name: str, args, device: str = "cuda") -> dict:
         enc["encode_s"] = time.perf_counter() - t1
     short = _greedy(impl16, params, prompts[:, :STATE_PROMPTS[0]],
                     STATE_PROMPTS[0] + FAM_NEW, device, frames)[3]
-    dec16, new, per_token_ms, state, busy_ms = _greedy(
-        impl16, params, prompts, FAM_PROMPT + FAM_NEW, device, frames)
+    dec16, new, per_token_ms, state, busy_ms, dec_peak = _greedy(
+        impl16, params, prompts, FAM_PROMPT + FAM_NEW, device, frames, base)
     seq_tf = torch.cat([prompts, new[:, :-1]], dim=1)
     fb = {"tokens": seq_tf}
     if frames is not None:
@@ -2267,7 +2323,7 @@ def run_family(name: str, args, device: str = "cuda") -> dict:
     toks = new.cpu().numpy()
     out = {"layers": cfg.n_layers, "params": n_params, "init_s": init_s,
            "train": train, "mixer_ms": mixers, **enc,
-           "per_token_ms": per_token_ms,
+           "per_token_ms": per_token_ms, "decode_step_peak_bytes": dec_peak,
            "decode_device_busy_ms_a_token": busy_ms,
            "decode_device_idle_share": (1.0 - busy_ms / per_token_ms)
            if busy_ms else None,
@@ -2301,6 +2357,106 @@ def run_family(name: str, args, device: str = "cuda") -> dict:
         raise AssertionError(f"fp32 {name} decode logits differ from "
                              f"prefill_fn's past rtol = atol = {MLA_TOL}")
     return out
+
+
+# -- phase 16: the dry run against the card ---------------------------------
+
+# the dry run's predicted peak of a training step (argument + temp + output
+# bytes, repro_torch.launch.dryrun) against the step's measured peak: the
+# counter follows every storage the step creates, the card's allocator
+# adds 512-byte rounding and library workspaces, so a miss past 10 % is a
+# fault of the counter
+DRY_PEAK_RTOL = 0.10
+
+
+def dry_run_specs(args) -> dict:
+    """``name -> (config, InputShape, device_params_bf16)`` of each
+    full-width resident run the script makes, as its phase builds it."""
+    specs = {"qwen3-4b train": (
+        dataclasses.replace(get_config("qwen3-4b"),
+                            n_layers=args.train_layers),
+        InputShape("resident_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        False)}
+    for name in FAM_ARCHS:
+        cfg = _family_config(name, args)
+        seq = cfg.max_decode_len if cfg.family == "audio" else FAM_SEQ
+        specs[f"{name} train"] = (
+            cfg, InputShape("family_train", seq, FAM_BATCH, "train"), True)
+        specs[f"{name} decode"] = (
+            _family_config(name, args, MLA_CAPACITY),
+            InputShape("family_decode", FAM_PROMPT + FAM_NEW, FAM_BATCH,
+                       "decode"), True)
+    specs["deepseek-v3 decode"] = (
+        _mla_config(args.mla_layers, MLA_CAPACITY),
+        InputShape("mla_decode", MLA_PROMPT + MLA_NEW, MLA_BATCH, "decode"),
+        True)
+    return specs
+
+
+def dry_run_records(specs: dict) -> dict:
+    """Each spec's dry run on the meta device.  It needs no card: the
+    script runs it in a process of its own while the card's phases run."""
+    out = {}
+    for name, (cfg, shape, bf16) in specs.items():
+        t0 = time.perf_counter()
+        rec = lower_pair(cfg, shape, device_params_bf16=bf16)
+        rec["wall_s"] = time.perf_counter() - t0
+        out[name] = rec
+    return out
+
+
+def run_dry_vs_card(records: dict, measured: dict, card: str) -> dict:
+    """One line a run: the dry run's flops, bytes and predicted peak, the
+    roofline floor with the H100's constants, the measured step (or
+    token) and its peak.  A training step's predicted peak must be within
+    DRY_PEAK_RTOL of its measured one."""
+    rows, misses = {}, []
+    print(f"dry run vs the card ({card}; floor = max(flops / "
+          f"{PEAK_FLOPS:.3g}, bytes / {HBM_BW:.3g}), the eager program's "
+          f"op-by-op bytes):")
+    for name, rec in records.items():
+        step_ms, peak = measured[name]
+        mem = rec["memory"]
+        pred = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                + mem["output_size_in_bytes"])
+        flops, nbytes = rec["cost"]["flops"], rec["cost"]["bytes accessed"]
+        compute_ms = 1e3 * flops / PEAK_FLOPS
+        memory_ms = 1e3 * nbytes / HBM_BW
+        floor_ms = max(compute_ms, memory_ms)
+        row = {"kind": rec["kind"], "layers": rec["n_layers"],
+               "batch": rec["global_batch"], "seq": rec["seq_len"],
+               "flops": flops, "bytes_accessed": nbytes,
+               "transcendentals": rec["cost"]["transcendentals"],
+               "argument_bytes": mem["argument_size_in_bytes"],
+               "temp_bytes": mem["temp_size_in_bytes"],
+               "output_bytes": mem["output_size_in_bytes"],
+               "predicted_peak_bytes": pred, "measured_peak_bytes": peak,
+               "peak_ratio": pred / peak if peak else None,
+               "compute_ms": compute_ms, "memory_ms": memory_ms,
+               "floor_ms": floor_ms,
+               "bound_by": "operations" if compute_ms >= memory_ms
+               else "bytes",
+               "measured_ms": step_ms,
+               "roofline_share": floor_ms / step_ms,
+               "dry_run_s": rec["wall_s"]}
+        rows[name] = row
+        print(f"  {name} ({rec['n_layers']} layers, {rec['global_batch']} x "
+              f"{rec['seq_len']}): {flops:.4e} flops, {nbytes:.4e} B; "
+              f"predicted peak {pred} B (argument "
+              f"{mem['argument_size_in_bytes']} + temp "
+              f"{mem['temp_size_in_bytes']} + output "
+              f"{mem['output_size_in_bytes']}) vs max_memory_allocated "
+              f"{peak} B (ratio {row['peak_ratio']}); floor "
+              f"{floor_ms:.4f} ms ({row['bound_by']}), measured "
+              f"{step_ms:.4f} ms, roofline_share "
+              f"{row['roofline_share']:.4f}")
+        if rec["kind"] == "train" and peak is not None and \
+                not abs(pred - peak) <= DRY_PEAK_RTOL * peak:
+            misses.append(f"{name}: predicted {pred} B, measured {peak} B")
+    if misses:
+        raise AssertionError(f"dry-run peak off the card's by more than "
+                             f"{DRY_PEAK_RTOL:.0%}: {misses}")
+    return rows
 
 
 def _device_busy_ms(prof) -> tuple[float, list]:
@@ -2348,11 +2504,17 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # the dry runs need no card: a process of their own, beside the phases
+    dry_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    dry_future = dry_pool.submit(dry_run_records, dry_run_specs(args))
     card = card_line()
     print(card)
     print(f"host MemTotal {_mem_total()} B")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+          f"total_memory "
+          f"{torch.cuda.get_device_properties(0).total_memory} B")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 checks in fp32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2417,6 +2579,10 @@ def main() -> int:
         t = time.perf_counter()
         run_serve_paths(args, workdir)
         phase_s["serving_breadth"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dry_records = dry_future.result()
+    dry_pool.shutdown()
+    phase_s["dry_run_wait"] = time.perf_counter() - t
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_train_") as workdir:
         t = time.perf_counter()
@@ -2442,7 +2608,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_mla_") as workdir:
         t = time.perf_counter()
-        run_mla_decode(args)
+        mla = run_mla_decode(args)
         torch.cuda.empty_cache()
         phase_s["mla_resident_decode"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -2454,6 +2620,16 @@ def main() -> int:
         families[name] = run_family(name, args)
         torch.cuda.empty_cache()
         phase_s[name] = time.perf_counter() - t
+    measured = {"qwen3-4b train": (1e3 * min(resident["step_s"]),
+                                   resident["step_peak_bytes"]),
+                "deepseek-v3 decode": (mla["per_token_ms"],
+                                       mla["step_peak_bytes"])}
+    for name, fam in families.items():
+        measured[f"{name} train"] = (1e3 * min(fam["train"]["step_s"]),
+                                     fam["train"]["step_peak_bytes"])
+        measured[f"{name} decode"] = (fam["per_token_ms"],
+                                      fam["decode_step_peak_bytes"])
+    dry_vs_card = run_dry_vs_card(dry_records, measured, card)
     print(f"phase seconds: {phase_s}")
 
     kernels = [{
@@ -2481,6 +2657,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_adam.py:72",
         "launches": adam_path["launches"], "max_abs_err": adam_err,
         **adam_timing}]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "dry_vs_card.json"),
+              "w") as f:
+        json.dump({"card": card, "total_memory":
+                   torch.cuda.get_device_properties(0).total_memory,
+                   "runs": dry_vs_card}, f, indent=2)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,12 +17,14 @@ import torch.nn.functional as F
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; asking for CUDA without a card
-    raises (the port never drops to the CPU on its own)."""
+    raises (the port never drops to the CPU on its own).  ``"meta"`` is
+    the dry run's device (:mod:`repro_torch.launch.dryrun`): shapes and
+    dtypes only, nothing runs there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but torch.cuda is not "
                            f"available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -143,6 +145,8 @@ def cross_entropy(logits, labels, *, mask=None):
 def trunc_normal_(generator: torch.Generator, out, std: float):
     """Fill ``out`` in place with ``std`` × a standard normal truncated to
     [-2, 2]."""
+    if out.is_meta:
+        return out
     return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=generator)
 
@@ -165,17 +169,28 @@ def fan_in_init(generator: torch.Generator, shape, dtype=torch.float32):
     return trunc_normal(generator, shape, fan_in_std(shape), dtype)
 
 
+class MetaDraws:
+    """The generator of a tree on the meta device, where nothing is drawn:
+    the tree gets its shapes and dtypes and no values (the counterpart of
+    ``jax.eval_shape(init_params, key)``)."""
+    device = torch.device("meta")
+
+
 def generator_of(generator_or_seed, device) -> torch.Generator:
     """The generator given, or a new one on ``device`` seeded with the
-    int given."""
-    if isinstance(generator_or_seed, torch.Generator):
+    int given (:class:`MetaDraws` on the meta device)."""
+    if isinstance(generator_or_seed, (torch.Generator, MetaDraws)):
         return generator_or_seed
+    if torch.device(device).type == "meta":
+        return MetaDraws()
     return torch.Generator(device=device).manual_seed(int(generator_or_seed))
 
 
 # Per-tensor initialisers ``init(generator, out) -> out``: each fills the
 # tensor it is given in place (a layer's tensor, or one group's slice of a
 # stacked one), so the period-stacked and the per-block draws share them.
+# On a meta tensor each runs no draw (:func:`trunc_normal_` returns it
+# as it is; a fill or a copy checks shapes only).
 
 def fan_in_(generator: torch.Generator, out, scale: float = 1.0):
     """``scale`` × 1/sqrt(fan_in) trunc-normal (fan-in from out's shape)."""

@@ -1,3 +1,3 @@
-from .step import build_train_step, grads_overflow_flag
+from .step import build_prefill_step, build_train_step, grads_overflow_flag
 
-__all__ = ["build_train_step", "grads_overflow_flag"]
+__all__ = ["build_prefill_step", "build_train_step", "grads_overflow_flag"]

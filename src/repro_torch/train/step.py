@@ -13,10 +13,12 @@ caller (the launcher's SGD, or a host optimizer).
   version on CPU tensors (the same function as the reference's OR of
   ``fused_overflow_check_jnp``); ``"baseline"`` keeps the chained
   ``isinf(abs) | isnan`` formulation.
-* No counterpart, by decision: ``make_act_hint``, the shardings
-  ``build_train_step`` returns, and ``build_prefill_step`` (a sharded
-  wrapper of ``ModelImpl.prefill_fn``): one card has no mesh, as
-  ``launch/{mesh,sharding,dryrun}.py`` have none.
+* :func:`build_prefill_step` is the forward-only logits step (inference
+  prefill) over ``ModelImpl.prefill_fn``, which the dry run
+  (:mod:`repro_torch.launch.dryrun`) counts at the prefill shapes.
+* No counterpart, by decision: ``make_act_hint`` and the shardings the
+  reference's builders return: one card has no mesh, as
+  ``launch/{mesh,sharding}.py`` have none.
 """
 
 from __future__ import annotations
@@ -97,3 +99,13 @@ def build_train_step(impl: ModelImpl, *, check_overflow: bool | str = True):
 
     return step
 
+
+def build_prefill_step(impl: ModelImpl):
+    """``prefill(params, batch) -> logits``: the forward-only logits of
+    ``impl.prefill_fn``, with no autograd graph."""
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return impl.prefill_fn(params, batch)
+
+    return prefill

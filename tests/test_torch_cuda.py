@@ -889,3 +889,42 @@ def test_family_train_step_screen_is_the_plain_verdict(cuda, arch):
     assert bool(grads_overflow_flag(grads)) is True
     assert any(bool(overflow_check_plain(g)) for g in leaves)
     assert np.isfinite(float(loss))
+
+
+def test_each_kernel_holds_to_its_ref_oracle(cuda):
+    """Each kernel against :mod:`repro_torch.kernels.ref`'s oracle (the
+    reference's three, translated): attention at the sweep's tolerances
+    (fp32 and bf16, windowed and not, GQA), the overflow screen's verdict
+    clean and with one Inf/NaN in fp32/bf16/fp16, and fused AdamW's p, m,
+    v within 1e-6 of the oracle's and its w16 the oracle's rounding of
+    p within one ULP of the 16-bit type."""
+    from repro_torch.kernels import ref
+    for dtype in (torch.float32, torch.bfloat16):
+        for window, causal in ((0, True), (64, True), (0, False)):
+            q, k, v = _qkv(2, 4, 2, 192, 64, dtype, seed=11)
+            out = swa_attention_cuda(q, k, v, window=window, causal=causal)
+            want = ref.ref_swa_attention(q, k, v, window=window,
+                                         causal=causal)
+            assert (out.float() - want.float()).abs().max().item() <= \
+                TOL[dtype]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = torch.randn(100_003, device="cuda", generator=g).to(dtype)
+        assert overflow_check_cuda(x) is bool(ref.ref_overflow_check(x)) \
+            is False
+        for bad in (float("inf"), float("nan")):
+            y = x.clone()
+            y[77_777] = bad
+            assert overflow_check_cuda(y) is \
+                bool(ref.ref_overflow_check(y)) is True
+    p, g_, m = (torch.randn(65_537, device="cuda", generator=g)
+                for _ in range(3))
+    v = torch.rand(65_537, device="cuda", generator=g)
+    for wd in (0.0, 0.05):
+        got = fused_adam_cuda(p, g_, m, v, 5, lr=3e-3, weight_decay=wd)
+        want = ref.ref_fused_adam(p, g_, m, v, 5, lr=3e-3, weight_decay=wd)
+        for a, b in zip(got[:3], want[:3], strict=True):
+            assert ((a - b).abs() <= 1e-6 * (1.0 + b.abs())).all()
+        ulp = torch.finfo(torch.bfloat16).eps * want[3].float().abs().clamp(
+            min=torch.finfo(torch.bfloat16).tiny)
+        assert ((got[3].float() - want[3].float()).abs() <= ulp).all()

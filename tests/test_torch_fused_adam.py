@@ -119,7 +119,8 @@ def test_bias_terms_are_the_references_fp32_power(step):
 
 def test_dispatch_routes_by_device():
     """CPU tensors reach the plain version; the kernel's launch count does
-    not move; a CUDA tensor on a host without a card never falls back."""
+    not move; a CUDA tensor on a host without a card never falls back;
+    meta tensors outside a dry run raise."""
     arrs = [torch.from_numpy(a) for a in
             _inputs((33,), np.random.default_rng(0))]
     before = fused_adam_cuda.launches
@@ -127,7 +128,7 @@ def test_dispatch_routes_by_device():
     want = fused_adam_plain(*arrs, 3, weight_decay=0.01)
     assert fused_adam_cuda.launches == before
     assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    with pytest.raises(RuntimeError, match="outside a dry run"):
         ops.fused_adam(*(a.to("meta") for a in arrs), 1)
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam_cuda(*arrs, 1)

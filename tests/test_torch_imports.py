@@ -37,7 +37,8 @@ def test_port_has_modules():
     "models/moe.py", "core/paged.py", "models/registry.py",
     "models/transformer.py", "train/step.py", "serve/decode.py",
     "launch/train.py", "models/mamba.py", "models/xlstm.py",
-    "models/whisper.py"])
+    "models/whisper.py", "launch/dryrun.py", "launch/roofline.py",
+    "kernels/ref.py", "core/lock_witness.py"])
 def test_training_slice_modules_are_scanned(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
@@ -67,17 +68,15 @@ def test_core_exports_the_reference_names():
 @pytest.mark.parametrize("package", ["models", "train", "serve", "data"])
 def test_package_exports_the_reference_names(package):
     """The resident path's packages export what the reference's do (the
-    model zoo's ``mamba``, ``xlstm`` and ``whisper`` among them), less the
-    sharded prefill builder; the port adds ``TensorSpec`` (its
+    model zoo's ``mamba``, ``xlstm`` and ``whisper`` among them, and the
+    prefill builder); the port adds ``TensorSpec`` (its
     ``jax.ShapeDtypeStruct``) and exports ``grads_overflow_flag``."""
     import importlib
     ref = set(importlib.import_module(f"repro.{package}").__all__)
     port = set(importlib.import_module(f"repro_torch.{package}").__all__)
-    no_counterpart = {"build_prefill_step"}     # a sharded pjit wrapper
     port_only = {"TensorSpec", "grads_overflow_flag"}
-    assert port - port_only == ref - no_counterpart, (
-        f"missing {sorted(ref - no_counterpart - port)}, extra "
-        f"{sorted(port - port_only - ref)}")
+    assert port - port_only == ref, (
+        f"missing {sorted(ref - port)}, extra {sorted(port - port_only - ref)}")
 
 
 @pytest.mark.parametrize("name", ["mamba", "xlstm", "whisper"])

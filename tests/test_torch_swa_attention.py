@@ -10,6 +10,8 @@ magnitude ~1).  The CUDA kernel's own sweep on the card is in
 ``tests/test_torch_cuda.py``.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,9 +74,15 @@ def test_plain_handles_lengths_no_tile_divides(rng):
 
 
 def test_dispatch_rejects_other_devices():
+    """Meta tensors reach the dry run's charge only, and raise outside a
+    dry run; any device other than cuda, cpu and meta raises (a stand-in
+    carries it: this host allocates on no other device)."""
     q = torch.zeros((1, 1, 4, 16), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    with pytest.raises(RuntimeError, match="outside a dry run"):
         ops.swa_attention(q, q, q)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        ops.swa_attention(other, other, other)
 
 
 def test_output_keeps_input_dtype(rng):
