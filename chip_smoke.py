@@ -106,6 +106,19 @@ Phases (each raises on failure; the script exits non-zero):
        ``"routed"`` (768 host expert pages each, each arm's store dropped
        after it): equal tokens, the routed arm moving fewer expert
        bytes;
+    d. the (data, model) mesh (phase 17 in the code's section comments),
+       right after (a): a one-rank NCCL group (an in-memory store) and
+       ``launch.mesh.make_host_mesh()`` on the card; one
+       ``build_train_step(impl, mesh)`` step of (a)'s model and batch,
+       its loss and every gathered gradient bit-equal to the unmeshed
+       step (else held at 8 bf16 ULPs of each tensor's max, the gap
+       printed), the overflow flag equal to the plain screen's and the
+       kernel launched once a gradient's local shard (count zeroed just
+       before, read just after), then True with one Inf written into one
+       local shard; greedy decode through ``build_serve_step(impl, shape,
+       mesh)`` under "zero3" and "tp" (8 prompt tokens, 8 new), the
+       logits equal to the unmeshed serve step's at every position; the
+       group destroyed after;
 11. the recurrent and encoder-decoder families on the resident path
     (phases 13-15 in the code's section comments), each at full width
     with a bf16 tree drawn on the card from the seed, cut in depth only:
@@ -139,7 +152,12 @@ Phases (each raises on failure; the script exits non-zero):
     TFLOP/s and bytes over 3.35 TB/s), the measured step or token and
     their ratio, ``roofline_share``; every training run's predicted peak
     must be within 10 % of the measured one (the rows also go to
-    ``chiprun_out/dry_vs_card.json``);
+    ``chiprun_out/dry_vs_card.json``); the same side process runs the
+    pod-mesh (16x16) dry runs of qwen3-4b at full width, ``train_4k``
+    (ZeRO-3) and ``decode_32k`` under "zero3" and "tp", whose rank-0
+    argument, temp and peak bytes, collective bytes and counts by kind
+    and roofline terms phase 10d prints (also to
+    ``chiprun_out/mesh_phase.json``);
 13. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
@@ -186,8 +204,12 @@ from repro_torch.kernels.overflow_check import (  # noqa: E402
     overflow_check_cuda, overflow_check_plain, overflow_flag_cuda_)
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     attention_path, swa_attention_cuda, swa_attention_plain)
+from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch.dryrun import lower_pair  # noqa: E402
-from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
+                                     one_rank_group)
+from repro_torch.launch.roofline import (HBM_BW, LINK_BW,  # noqa: E402
+                                         PEAK_FLOPS, analyze)
 from repro_torch.launch.train import resident_loop  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
@@ -199,7 +221,9 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.serve import (OffloadedDecoder, Request,  # noqa: E402
                                RequestState, ServingEngine, SpecConfig,
                                build_serve_step)
+from repro_torch.models.registry import TensorSpec  # noqa: E402
 from repro_torch.train import build_train_step  # noqa: E402
+from repro_torch.train import grads_overflow_flag  # noqa: E402
 from repro_torch.train.step import tree_leaves, tree_map  # noqa: E402
 
 # first-token logits vs the device-resident plain forward: 8 bf16 ULPs of
@@ -1749,6 +1773,174 @@ def run_resident_train(host_run: dict, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 17: the (data, model) mesh ----------------------------------------
+
+MESH_PROMPT, MESH_NEW = 8, 8
+# the meshed step's loss and gradients vs the unmeshed step's, should they
+# not be bit-equal: 8 bf16 ULPs of each tensor's max abs, the repo's bf16
+# bound
+MESH_GRAD_ULPS = 8.0
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bf16 ULPs of ``want``'s max abs."""
+    scale = float(want.abs().max())
+    if scale == 0.0:
+        return 0.0 if torch.equal(got, want) else float("inf")
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+def _greedy_logits(serve, params, cache, prompt, new: int) -> list:
+    """Every step's logits: the prompt fed a token a step, then ``new``
+    greedy tokens, each the argmax of the step before."""
+    rows, tok = [], prompt[:, :1]
+    for t in range(prompt.shape[1] + new):
+        logits, cache = serve(params, cache, tok, t)
+        full = logits.full_tensor() if hasattr(logits, "full_tensor") \
+            else logits
+        rows.append(full[:, 0])
+        tok = prompt[:, t + 1:t + 2] if t + 1 < prompt.shape[1] else \
+            full[:, -1:].argmax(-1).to(torch.int32)
+    return rows
+
+
+def run_mesh_phase(host_run: dict, device: str = "cuda") -> dict:
+    """The resident steps over the 1x1 host mesh of a one-rank NCCL group:
+    one train step of the training phase's qwen3-4b model and batch and
+    greedy decode under "zero3" and "tp", each against the unmeshed step
+    on the same inputs; the overflow kernel on the gradients' local
+    shards."""
+    t0 = time.perf_counter()
+    model = host_run["model"]
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              n_layers=len(model.units) - 2)
+    dev = torch.device(device)
+    params = _resident_tree(cfg, model, dev)
+    impl = build(cfg, device=dev)
+    batch = {"tokens": torch.from_numpy(host_run["tokens"]).to(dev),
+             "labels": torch.from_numpy(host_run["labels"]).to(dev)}
+    batch_shape = {k: TensorSpec(tuple(v.shape), v.dtype)
+                   for k, v in batch.items()}
+    want_loss, want, want_ov = build_train_step(impl)(params, batch, 1.0)
+    shape = InputShape("mesh_decode", MESH_PROMPT + MESH_NEW, TRAIN_BATCH,
+                       "decode")
+    prompt = batch["tokens"][:, :MESH_PROMPT].to(torch.int32)
+    serve, _specs = build_serve_step(impl, shape)
+    cache = impl.init_cache(TRAIN_BATCH, shape.seq_len, torch.bfloat16)
+    want_rows = _greedy_logits(serve, params, cache, prompt, MESH_NEW)
+    out = {"backend": "nccl" if dev.type == "cuda" else "gloo",
+           "layers": cfg.n_layers}
+    with one_rank_group(out["backend"]):
+        mesh = make_host_mesh(device_type=dev.type)
+        step, in_pl, _out = build_train_step(impl, mesh,
+                                             batch_shape=batch_shape)
+        mparams = shd.place(params, in_pl[0], mesh)
+        _sync(device)
+        overflow_flag_cuda_.launches = 0
+        t = time.perf_counter()
+        loss, grads, overflow = step(mparams, batch, 1.0)
+        _sync(device)
+        out["train_step_s"] = time.perf_counter() - t
+        out["overflow_launches_per_step"] = overflow_flag_cuda_.launches
+        full = shd.full_tree(grads)
+        pairs = list(zip(tree_leaves(full), tree_leaves(want)))
+        out["gradient_leaves"] = len(pairs)
+        out["loss"], out["unmeshed_loss"] = float(loss), float(want_loss)
+        out["grads_bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+        out["loss_bit_equal"] = torch.equal(loss, want_loss)
+        out["loss_ulps"] = _bf16_ulps(loss, want_loss)
+        out["max_grad_ulps"] = max(_bf16_ulps(a, b) for a, b in pairs)
+        out["overflow"], out["unmeshed_overflow"] = bool(overflow), \
+            bool(want_ov)
+        del full, pairs
+        # an Inf in one gradient's local shard: the kernel on the shards,
+        # the flag through the group's MAX all-reduce
+        g = tree_leaves(grads)[-1].to_local()
+        g.view(-1)[-1] = float("inf")
+        out["inf_flag"] = bool(grads_overflow_flag(grads))
+        del grads, g
+        for mode in ("zero3", "tp"):
+            t = time.perf_counter()
+            mserve, s_in, _o, _a = build_serve_step(impl, shape, mesh,
+                                                    param_mode=mode)
+            rows = _greedy_logits(mserve, shd.place(params, s_in[0], mesh),
+                                  cache, prompt, MESH_NEW)
+            out[f"{mode}_logits_equal"] = all(
+                torch.equal(a, b) for a, b in zip(rows, want_rows))
+            out[f"{mode}_max_logit_ulps"] = max(
+                _bf16_ulps(a, b) for a, b in zip(rows, want_rows))
+            out[f"{mode}_decode_s"] = time.perf_counter() - t
+    del params, want
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"mesh phase ({out['backend']} group of one rank, 1x1 "
+          f"(data, model) mesh, qwen3-4b depth {cfg.n_layers}, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} train, {MESH_PROMPT} + {MESH_NEW} "
+          f"greedy tokens):")
+    for k, v in out.items():
+        print(f"  {k}: {v}")
+    if not (out["loss_bit_equal"] and out["grads_bit_equal"]) and \
+            not max(out["loss_ulps"], out["max_grad_ulps"]) <= \
+            MESH_GRAD_ULPS:
+        raise AssertionError(f"meshed loss / gradients off the unmeshed "
+                             f"step by {out['loss_ulps']} / "
+                             f"{out['max_grad_ulps']} bf16 ULPs")
+    if out["overflow"] != out["unmeshed_overflow"] or out["overflow"] \
+            or not out["inf_flag"]:
+        raise AssertionError(f"mesh overflow flags {out}")
+    if device == "cuda" and \
+            out["overflow_launches_per_step"] != out["gradient_leaves"]:
+        raise AssertionError(f"overflow_check launched "
+                             f"{out['overflow_launches_per_step']} times for "
+                             f"{out['gradient_leaves']} local shards")
+    if not (out["zero3_logits_equal"] and out["tp_logits_equal"]):
+        raise AssertionError("meshed decode logits differ from the "
+                             "unmeshed serve step's")
+    return out
+
+
+MESH_DRY_RUNS = {"qwen3-4b train_4k zero3": ("train_4k", "zero3"),
+                 "qwen3-4b decode_32k zero3": ("decode_32k", "zero3"),
+                 "qwen3-4b decode_32k tp": ("decode_32k", "tp")}
+
+
+def mesh_dry_run_records() -> dict:
+    """The pod-mesh (16x16) dry runs of qwen3-4b at full width, rank 0's
+    numbers (no card: a fake process group of 256 ranks)."""
+    out = {}
+    for name, (shape, mode) in MESH_DRY_RUNS.items():
+        t0 = time.perf_counter()
+        rec = lower_pair("qwen3-4b", shape, "pod", serve_param_mode=mode)
+        rec["wall_s"] = time.perf_counter() - t0
+        out[name] = rec
+    return out
+
+
+def print_mesh_dry_runs(records: dict) -> dict:
+    rows = {}
+    print("pod-mesh dry run (16x16, rank 0; computed, not measured; "
+          f"roofline at {PEAK_FLOPS:.3g} FLOP/s, {HBM_BW:.3g} B/s, "
+          f"{LINK_BW:.3g} B/s a link):")
+    for name, rec in records.items():
+        mem = rec["memory"]
+        r = analyze(rec)
+        row = {"argument_bytes": mem["argument_size_in_bytes"],
+               "temp_bytes": mem["temp_size_in_bytes"],
+               "output_bytes": mem["output_size_in_bytes"],
+               "peak_bytes": mem["argument_size_in_bytes"]
+               + mem["temp_size_in_bytes"] + mem["output_size_in_bytes"],
+               "collective_bytes": rec["collectives"]["bytes"],
+               "collective_counts": rec["collectives"]["counts"],
+               "compute_s": r.compute_s, "memory_s": r.memory_s,
+               "collective_s": r.collective_s, "dominant": r.dominant,
+               "fits": r.fits, "dry_run_s": rec["wall_s"]}
+        rows[name] = row
+        print(f"  {name}: {row}")
+        if rec["collectives"]["counts"]["all-gather"] == 0:
+            raise AssertionError(f"{name}: no all-gather on the pod mesh")
+    return rows
+
+
 # -- phase 11: resident MLA decode ---------------------------------------------
 
 MLA_BATCH, MLA_PROMPT, MLA_NEW = 2, 64, 16
@@ -2393,6 +2585,12 @@ def dry_run_specs(args) -> dict:
     return specs
 
 
+def side_records(specs: dict) -> tuple[dict, dict]:
+    """What the side process computes: :func:`dry_run_records` and
+    :func:`mesh_dry_run_records`."""
+    return dry_run_records(specs), mesh_dry_run_records()
+
+
 def dry_run_records(specs: dict) -> dict:
     """Each spec's dry run on the meta device.  It needs no card: the
     script runs it in a process of its own while the card's phases run."""
@@ -2507,7 +2705,7 @@ def main() -> int:
     # the dry runs need no card: a process of their own, beside the phases
     dry_pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    dry_future = dry_pool.submit(dry_run_records, dry_run_specs(args))
+    dry_future = dry_pool.submit(side_records, dry_run_specs(args))
     card = card_line()
     print(card)
     print(f"host MemTotal {_mem_total()} B")
@@ -2580,7 +2778,7 @@ def main() -> int:
         run_serve_paths(args, workdir)
         phase_s["serving_breadth"] = time.perf_counter() - t
     t = time.perf_counter()
-    dry_records = dry_future.result()
+    dry_records, mesh_records = dry_future.result()
     dry_pool.shutdown()
     phase_s["dry_run_wait"] = time.perf_counter() - t
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
@@ -2593,9 +2791,15 @@ def main() -> int:
         phase_s["activation_tiers"] = time.perf_counter() - t
         t = time.perf_counter()
         resident = run_resident_train(host_run)
-        del host_run
         torch.cuda.empty_cache()
         phase_s["resident_training"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mesh = run_mesh_phase(host_run)
+        mesh["dry_runs"] = print_mesh_dry_runs(mesh_records)
+        del host_run
+        torch.cuda.empty_cache()
+        phase_s["mesh"] = time.perf_counter() - t
+        print(f"mesh phase: {phase_s['mesh']:.1f} s")
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_moe_") as workdir:
         t = time.perf_counter()
@@ -2650,6 +2854,7 @@ def main() -> int:
             m: a["overflow_launches"]
             for m, a in moe_train["arms"].items()},
         "resident_launches": resident["overflow_launches"],
+        "mesh_launches_per_step": mesh["overflow_launches_per_step"],
         "family_launches": {n: f["train"]["overflow_launches"]
                             for n, f in families.items()}}, {
         "name": "fused_adam", "route": "cuda",
@@ -2663,6 +2868,9 @@ def main() -> int:
         json.dump({"card": card, "total_memory":
                    torch.cuda.get_device_properties(0).total_memory,
                    "runs": dry_vs_card}, f, indent=2)
+    with open(os.path.join(ROOT, "chiprun_out", "mesh_phase.json"),
+              "w") as f:
+        json.dump({"card": card, **mesh}, f, indent=2, default=str)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

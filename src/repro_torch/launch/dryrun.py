@@ -1,10 +1,10 @@
-"""One-card dry run: what one step of (arch, shape) costs and needs on the
-card, with nothing allocated.
+"""Dry run: what one step of (arch, shape) costs and needs on one card,
+or on each card of a production mesh, with nothing allocated.
 
-Port of ``src/repro/launch/dryrun.py`` for one card.  The reference
-lowers and compiles each step against a 256- or 512-chip mesh of
-placeholder devices; one card has no mesh, so this runs the step itself on
-the meta device (:func:`repro_torch.models.build` with ``device="meta"``:
+Port of ``src/repro/launch/dryrun.py``.  The reference lowers and
+compiles each step against a 256- or 512-chip mesh of placeholder
+devices; this runs the step itself on the meta device
+(:func:`repro_torch.models.build` with ``device="meta"``:
 every tensor has its shape and dtype and no storage, and no kernel runs)
 under one ``TorchDispatchMode`` that sees every aten op the step
 dispatches:
@@ -38,14 +38,34 @@ An eager counter sees every op that runs, loops unrolled, so nothing needs
 the reference's 1- and 2-group calibration (``"calibrated": false``), and
 one card moves no collective bytes.
 
+**The production meshes.**  ``lower_pair(..., mesh="pod")`` (16x16, 256
+ranks) or ``"multipod"`` (2x16x16, 512) runs the same step inside a
+``"fake"`` process group of that size (:func:`repro_torch.launch.mesh.
+fake_process_group`) on DTensors whose local tensors are this rank's meta
+shards, placed by :mod:`repro_torch.launch.sharding` (params ZeRO-3 for
+train and prefill, ``serve_param_mode`` for decode).  The counter lets
+each DTensor op pass to DTensor (its sharding propagation's fake-tensor
+shape checks are not counted) and counts the local ops and the
+``_c10d_functional`` collectives DTensor issues on rank 0, so every
+number is what rank 0 holds and does: the local shards' argument, temp
+and output bytes, its flops and bytes, and the collectives by the
+reference's kinds, each one's result bytes (what XLA's partitioned HLO
+shows per device).  ``wait_tensor`` is not counted.  The collective
+schedule is the port's (:mod:`repro_torch.models.dist`: each weight
+gathered over the batch axes where a layer uses it, row-parallel sums
+all-reduced) and PyTorch's partitioner's elsewhere, not XLA's, so its
+counts are not the reference's.
+
 Usage::
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--force]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--force] \
+      [--mesh h100|pod|multipod|both] [--serve-param-mode zero3|tp] \
+      [--act-hint]
 
-Records are JSON files under ``build/dryrun_torch/h100/`` (resumable;
-``--force`` redoes them); ``python -m repro_torch.launch.roofline``
-tabulates them.
+Records are JSON files under ``build/dryrun_torch/<mesh>/`` (resumable;
+``--force`` redoes them); ``python -m repro_torch.launch.roofline
+[--mesh ...]`` tabulates them.
 """
 
 from __future__ import annotations
@@ -53,6 +73,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import time
 import traceback
@@ -64,21 +85,39 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs import ARCHS, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import build, shape_supported, variant_for_shape
+from repro_torch.models.registry import param_shapes
 from repro_torch.serve.decode import build_serve_step
 from repro_torch.train.step import (build_prefill_step, build_train_step,
-                                    tree_leaves, tree_map)
+                                    make_act_hint, tree_leaves, tree_map)
+from . import mesh as mesh_mod
+from . import sharding as shd
 
+# records go to OUT_DIR/<mesh>/: h100 (one card), pod, multipod
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                       "build", "dryrun_torch", "h100")
+                       "build", "dryrun_torch")
+# production mesh name -> multi_pod (its world size is the mesh's)
+MESHES = {"pod": False, "multipod": True}
 # a record whose step runs longer than this is written as an error
 BUDGET_S = 600.0
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
+# the functional collectives DTensor issues, by the reference's kinds
+# (wait_tensor and the autograd wrapper move nothing)
+_C10D_KINDS = {"all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_reduce_coalesced": "all-reduce",
+               "all_to_all_single": "all-to-all"}
 
 aten = torch.ops.aten
 _TRANSCENDENTAL = {
@@ -123,6 +162,9 @@ class StepCounter(TorchDispatchMode):
     def __init__(self, budget_s: float | None = None) -> None:
         super().__init__()
         self.cost = Counter()
+        # result bytes and counts of the collectives, by kind
+        self.coll_bytes = Counter({k: 0 for k in _COLLECTIVES})
+        self.coll_counts = Counter({k: 0 for k in _COLLECTIVES})
         # flops by matmul / pointwise / reduction / kernel
         self.flops_by = Counter()
         self.kernels: dict = {}
@@ -210,14 +252,33 @@ class StepCounter(TorchDispatchMode):
             self.cost["bytes accessed"] += sum(map(_nbytes, ins)) + \
                 sum(map(_nbytes, outs))
 
+    def collectives(self) -> dict:
+        """The reference's ``collective_bytes`` record: result bytes and
+        counts by kind, and their total."""
+        return {"bytes": dict(self.coll_bytes),
+                "counts": dict(self.coll_counts),
+                "total_bytes": sum(self.coll_bytes.values())}
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs the op on the local shards (and its
+            # collectives), each of which comes back through this mode
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         ins = [t for t in tree_flatten((args, kwargs))[0]
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        if any(isinstance(t, FakeTensor) for t in ins + outs):
+            return out      # sharding propagation's shape check
         self._track(outs, ins)
+        if func.namespace == "_c10d_functional":
+            kind = _C10D_KINDS.get(func.overloadpacket.__name__)
+            if kind is not None:
+                self.coll_bytes[kind] += sum(map(_nbytes, outs))
+                self.coll_counts[kind] += 1
+            return out
         if self._paused or func.is_view:
             return out
         self.ops += 1
@@ -245,42 +306,76 @@ def _meta_tree(specs):
     return _meta(specs)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _bytes(tree) -> int:
-    return sum(_nbytes(t) for t in tree_leaves(tree))
+    """Bytes this rank holds of a tree (a DTensor's local shard)."""
+    return sum(_nbytes(_local(t)) for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
 
 
-def _lower_one(cfg: ModelConfig, shape: InputShape, *, check_overflow=True,
-               remat=True, bf16_logits=False, device_params_bf16=False,
-               budget_s=None):
-    """Run one step of ``cfg`` at ``shape`` on the meta device under a
+def _step_args(impl, cfg: ModelConfig, shape: InputShape, params, mesh, *,
+               check_overflow, serve_param_mode):
+    """``(fn, args)`` of one step on the meta device: plain meta tensors
+    on one card, or DTensors over this rank's meta shards on a mesh."""
+    def place(tree, specs):
+        if mesh is None:
+            return _meta_tree(tree)
+        return shd.meta_shards(specs(), tree, mesh)
+
+    if mesh is not None:
+        mode = serve_param_mode if shape.kind == "decode" else "zero3"
+        params = shd.meta_shards(shd.param_specs(cfg, params, mesh,
+                                                 mode=mode), params, mesh)
+    if shape.kind == "decode":
+        built = build_serve_step(impl, shape, mesh,
+                                 param_mode=serve_param_mode)
+        cache, tokens, length = built[-1]
+        return built[0], (
+            params, place(cache, lambda: shd.cache_specs(cfg, cache, mesh)),
+            place(tokens, lambda: shd.tokens_spec(mesh, shape.global_batch)),
+            _meta(length))
+    batch_specs = impl.input_specs(shape)
+    batch = place(batch_specs,
+                  lambda: shd.batch_specs(cfg, batch_specs, mesh))
+    if shape.kind == "train":
+        built = build_train_step(impl, mesh, batch_shape=batch_specs,
+                                 check_overflow=check_overflow)
+        args = (params, batch,
+                torch.empty((), dtype=torch.float32, device="meta"))
+    else:
+        built = build_prefill_step(impl, mesh, batch_shape=batch_specs)
+        args = (params, batch)
+    return (built if mesh is None else built[0]), args
+
+
+def _lower_one(cfg: ModelConfig, shape: InputShape, mesh=None, *,
+               check_overflow=True, remat=True, bf16_logits=False,
+               device_params_bf16=False, serve_param_mode="zero3",
+               act_hint=False, budget_s=None):
+    """Run one step of ``cfg`` at ``shape`` on the meta device (over
+    ``mesh``'s meta shards when one is given) under a
     :class:`StepCounter`; returns ``(counter, memory record, seconds)``."""
-    impl = build(cfg, remat=remat, bf16_logits=bf16_logits, device="meta")
-    params = impl.init_params(0)
+    hint = make_act_hint(mesh) if (act_hint and mesh is not None) else None
+    impl = build(cfg, remat=remat, bf16_logits=bf16_logits, hint=hint,
+                 device="meta")
+    params = param_shapes(cfg)
     if device_params_bf16:
         # ZeRO-Infinity device weights are half precision (the fp32 master
         # lives on the host or the SSD)
         params = tree_map(lambda t: torch.empty_like(t, dtype=torch.bfloat16)
                           if t.dtype == torch.float32 else t, params)
-    if shape.kind == "decode":
-        serve, (cache_specs, tok_spec, len_spec) = build_serve_step(impl,
-                                                                    shape)
-        args = (params, _meta_tree(cache_specs), _meta(tok_spec),
-                _meta(len_spec))
-        fn = serve
-    else:
-        batch = _meta_tree(impl.input_specs(shape))
-        if shape.kind == "train":
-            fn = build_train_step(impl, check_overflow=check_overflow)
-            args = (params, batch,
-                    torch.empty((), dtype=torch.float32, device="meta"))
-        else:
-            fn = build_prefill_step(impl)
-            args = (params, batch)
+    fn, args = _step_args(impl, cfg, shape, params, mesh,
+                          check_overflow=check_overflow,
+                          serve_param_mode=serve_param_mode)
     counter = StepCounter(budget_s)
     t0 = time.perf_counter()
     with counter, ops.dry_run_counter(counter):
         out = fn(*args)
-        out_leaves = tree_leaves(out)
+        out_leaves = [_local(t) for t in tree_leaves(out)
+                      if isinstance(t, torch.Tensor)]
         output = counter.created_bytes(out_leaves)
         peak = counter.peak
     seconds = time.perf_counter() - t0
@@ -299,17 +394,40 @@ def _resolve(arch, shape):
     return cfg, shape
 
 
-def lower_pair(arch: str | ModelConfig, shape: str | InputShape, *,
-               check_overflow=True, remat=True, bf16_logits=False,
-               device_params_bf16=False, budget_s: float | None = None):
+def lower_pair(arch: str | ModelConfig, shape: str | InputShape,
+               mesh=None, *, check_overflow=True, remat=True,
+               bf16_logits=False, device_params_bf16=False,
+               serve_param_mode: str = "zero3", act_hint: bool = False,
+               budget_s: float | None = None):
     """Run one (arch, shape) step on the meta device; returns the record.
 
     ``arch`` is an arch name or a :class:`ModelConfig` (a depth-cut config
     counts at its own depth), ``shape`` an ``INPUT_SHAPES`` name or an
-    :class:`InputShape`.  The record keeps the reference's keys, for one
-    card: ``"mesh": "1"``, ``n_chips`` 1, all-zero collectives and
-    ``"calibrated": false``.  ``budget_s`` bounds the step's time
-    (:class:`DryRunTimeout` past it)."""
+    :class:`InputShape`.  The record keeps the reference's keys.
+
+    ``mesh``: None for one card — ``"mesh": "1"``,
+    ``n_chips`` 1, all-zero collectives; ``"pod"`` / ``"multipod"`` for the
+    production meshes, each run in a fake process group of its size
+    opened and closed here; or a ``DeviceMesh`` over the caller's group.
+    On a mesh every number is rank 0's.  ``serve_param_mode`` places a
+    decode step's params (``"zero3"`` or ``"tp"``); ``act_hint`` applies
+    :func:`repro_torch.train.step.make_act_hint`.  The record stays
+    ``"calibrated": false``: the eager counter sees every layer.
+    ``budget_s`` bounds the step's time (:class:`DryRunTimeout` past
+    it)."""
+    if isinstance(mesh, str):
+        multi_pod = MESHES[mesh]
+        world = math.prod(mesh_mod.MULTIPOD_SHAPE if multi_pod
+                          else mesh_mod.POD_SHAPE)
+        with mesh_mod.fake_process_group(world):
+            return lower_pair(
+                arch, shape, mesh_mod.make_production_mesh(
+                    multi_pod=multi_pod, device_type="cpu"),
+                check_overflow=check_overflow, remat=remat,
+                bf16_logits=bf16_logits,
+                device_params_bf16=device_params_bf16,
+                serve_param_mode=serve_param_mode, act_hint=act_hint,
+                budget_s=budget_s)
     base_cfg, shape = _resolve(arch, shape)
     ok, reason = shape_supported(base_cfg, shape)
     if not ok:
@@ -317,18 +435,18 @@ def lower_pair(arch: str | ModelConfig, shape: str | InputShape, *,
                 "status": "skipped", "reason": reason}
     cfg = variant_for_shape(base_cfg, shape)
     counter, mem, seconds = _lower_one(
-        cfg, shape, check_overflow=check_overflow, remat=remat,
+        cfg, shape, mesh, check_overflow=check_overflow, remat=remat,
         bf16_logits=bf16_logits, device_params_bf16=device_params_bf16,
+        serve_param_mode=serve_param_mode, act_hint=act_hint,
         budget_s=budget_s)
     cost = {k: float(counter.cost[k])
             for k in ("flops", "bytes accessed", "transcendentals")}
-    coll = {"bytes": {k: 0 for k in _COLLECTIVES},
-            "counts": {k: 0 for k in _COLLECTIVES}, "total_bytes": 0}
-    return {
+    coll = counter.collectives()
+    rec = {
         "arch": base_cfg.name, "shape": shape.name, "status": "ok",
         "kind": shape.kind,
-        "mesh": "1",
-        "n_chips": 1,
+        "mesh": "1" if mesh is None else mesh_mod.mesh_name(mesh),
+        "n_chips": 1 if mesh is None else mesh.size(),
         "sliding_window": cfg.sliding_window,
         "params_total": cfg.param_count(),
         "params_active": cfg.param_count(active_only=True),
@@ -347,10 +465,18 @@ def lower_pair(arch: str | ModelConfig, shape: str | InputShape, *,
         "global_batch": shape.global_batch,
         "seq_len": shape.seq_len,
     }
+    if mesh is not None and shape.kind == "decode":
+        rec["serve_param_mode"] = serve_param_mode
+    if mesh is not None:
+        rec["act_hint"] = act_hint
+    return rec
 
 
-def run_all(archs, shapes, out_dir: str, *, force: bool = False,
-            budget_s: float = BUDGET_S) -> None:
+def run_all(archs, shapes, out_dir: str, *, mesh: str | None = None,
+            force: bool = False, budget_s: float = BUDGET_S,
+            serve_param_mode: str = "zero3", act_hint: bool = False) -> None:
+    """One record a pair under ``out_dir`` (``mesh`` as :func:`lower_pair`
+    takes it by name)."""
     os.makedirs(out_dir, exist_ok=True)
     for arch in archs:
         for shape_name in shapes:
@@ -359,10 +485,13 @@ def run_all(archs, shapes, out_dir: str, *, force: bool = False,
             if os.path.exists(path) and not force:
                 print(f"[cached] {arch} {shape_name}")
                 continue
-            print(f"[dryrun] {arch} {shape_name} ...", flush=True)
+            print(f"[dryrun] {mesh or 'h100'} {arch} {shape_name} ...",
+                  flush=True)
             t0 = time.perf_counter()
             try:
-                rec = lower_pair(arch, shape_name, budget_s=budget_s)
+                rec = lower_pair(arch, shape_name, mesh, budget_s=budget_s,
+                                 serve_param_mode=serve_param_mode,
+                                 act_hint=act_hint)
             except Exception as e:  # a failure here is a real bug
                 rec = {"arch": arch, "shape": shape_name, "status": "error",
                        "error": repr(e), "seconds": round(
@@ -375,7 +504,8 @@ def run_all(archs, shapes, out_dir: str, *, force: bool = False,
                 print(f"  ok: {rec['lower_seconds']}s "
                       f"flops={rec['cost']['flops']:.3e} "
                       f"bytes={rec['cost']['bytes accessed']:.3e} "
-                      f"temp={rec['memory']['temp_size_in_bytes']:.3e}B")
+                      f"temp={rec['memory']['temp_size_in_bytes']:.3e}B "
+                      f"coll={rec['collectives']['total_bytes']:.3e}B")
 
 
 def main() -> None:
@@ -384,13 +514,23 @@ def main() -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--mesh", default="h100",
+                    choices=["h100", "pod", "multipod", "both"])
+    ap.add_argument("--serve-param-mode", default="zero3",
+                    choices=["zero3", "tp"])
+    ap.add_argument("--act-hint", action="store_true")
     ap.add_argument("--out", default=os.path.abspath(OUT_DIR))
     args = ap.parse_args()
     if not args.all and args.arch is None and args.shape is None:
         ap.error("give --arch and/or --shape, or --all")
     archs = list(ARCHS) if args.arch is None else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape is None else [args.shape]
-    run_all(archs, shapes, args.out, force=args.force)
+    meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
+    for name in meshes:
+        run_all(archs, shapes, os.path.join(args.out, name),
+                mesh=None if name == "h100" else name, force=args.force,
+                serve_param_mode=args.serve_param_mode,
+                act_hint=args.act_hint)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,24 @@
-"""Roofline of the one-card dry run's records (:mod:`.dryrun`).
+"""Roofline of the dry run's records (:mod:`.dryrun`).
 
-Port of ``src/repro/launch/roofline.py`` for one NVIDIA H100 80GB HBM3
-(SXM): three terms per (arch x shape), in seconds per step,
+Port of ``src/repro/launch/roofline.py`` for NVIDIA H100 80GB HBM3 (SXM)
+cards: three terms per (arch x shape), in seconds per step, per card,
 
     compute    = flops / PEAK_FLOPS          (989e12, dense bf16 tensor cores)
     memory     = bytes accessed / HBM_BW     (3.35e12 B/s)
-    collective = link bytes / LINK_BW        (0 on one card)
+    collective = link bytes / LINK_BW        (450e9 B/s; 0 on one card)
 
-and the floor, ``max(compute, memory)``, the least time the step could
-take on the card.  The constants are the card's data-sheet peaks, not
-measurements; ``bytes accessed`` is the eager program's op-by-op traffic
-(see :mod:`.dryrun`), so the memory term is the unfused program's.
+with ``link bytes`` the reference's weighting of rank 0's collective
+result bytes (an all-reduce twice), and the floor, the largest of the
+three, the least time the step could take.  On one card (``h100``) the
+collective term is 0.  On the production meshes (``pod``: 16x16 = 256
+cards, ``multipod``: 2x16x16 = 512) every number is rank 0's.  A 16x16
+mesh of H100s spans 32 eight-GPU nodes: NVLink joins the 8 cards of a
+node only, so the one NVLink figure is an upper bound on the link the
+cross-node axis sees, and the collective term a lower bound on its time.
+No interconnect model is added; the reference has none either.  The
+constants are the card's data-sheet peaks, not measurements; ``bytes
+accessed`` is the eager program's op-by-op traffic (see :mod:`.dryrun`),
+so the memory term is the unfused program's.
 
 ``fits``: the step's predicted peak — argument + temp + output bytes — is
 at most the card's memory, :data:`HBM_BYTES` (``total_memory`` of an
@@ -21,7 +29,8 @@ active parameters; useful ratio = MODEL_FLOPS / counted flops.
 
 Usage::
 
-  PYTHONPATH=src python -m repro_torch.launch.roofline [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.roofline \
+      [--mesh h100|pod|multipod] [--out DIR]
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from repro_torch.configs import ARCHS, INPUT_SHAPES
 
 PEAK_FLOPS = 989e12          # H100 SXM, dense bf16 tensor cores
 HBM_BW = 3.35e12             # H100 SXM HBM3, B/s
-LINK_BW = 450e9              # NVLink 4, one direction, B/s (no link here)
+LINK_BW = 450e9              # NVLink 4, one direction, B/s
 # torch.cuda.get_device_properties(0).total_memory of an NVIDIA H100 80GB
 # HBM3 at a 700 W power limit, as chip_smoke.py prints it
 HBM_BYTES = 85_017_493_504
@@ -96,6 +105,8 @@ class Roofline:
 
 def _recommendation(r: "Roofline") -> str:
     if not r.fits:
+        if r.mesh != "1":
+            return "does not fit per card: shard further or offload"
         return ("does not fit on one card: the SSD-offloaded path "
                 "(OffloadSession) streams what the card cannot hold")
     if r.dominant == "collective":
@@ -144,10 +155,22 @@ def load_records(out_dir: str) -> list[dict]:
     return recs
 
 
-def report(out_dir: str) -> str:
+MESH_TITLES = {
+    "h100": "one NVIDIA H100 80GB HBM3",
+    "pod": "a 16x16 mesh of NVIDIA H100 80GB HBM3 (256 cards, rank 0; "
+           "32 eight-GPU nodes: the NVLink rate bounds the cross-node link "
+           "from above)",
+    "multipod": "a 2x16x16 mesh of NVIDIA H100 80GB HBM3 (512 cards, "
+                "rank 0; 64 eight-GPU nodes: the NVLink rate bounds the "
+                "cross-node link from above)",
+}
+
+
+def report(out_dir: str, mesh: str = "h100") -> str:
+    """The table of the records in ``out_dir`` (one mesh's directory)."""
     lines = [
-        "### Roofline — one NVIDIA H100 80GB HBM3 (989 TFLOP/s bf16, "
-        "3.35 TB/s; computed, not measured)",
+        f"### Roofline — {MESH_TITLES[mesh]} (989 TFLOP/s bf16, 3.35 TB/s, "
+        f"{LINK_BW / 1e9:.0f} GB/s a link; computed, not measured)",
         "",
         "| arch | shape | compute (s) | memory (s) | collective (s) | "
         "dominant | useful ratio | temp GiB/chip | peak GiB | fits | "
@@ -171,11 +194,14 @@ def report(out_dir: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default="h100",
+                    choices=["h100", "pod", "multipod"])
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(__file__), "..", "..", "..", "build",
-        "dryrun_torch", "h100"))
+        "dryrun_torch"), help="the dry run's root; records under <mesh>/")
     args = ap.parse_args()
-    print(report(os.path.abspath(args.out)))
+    print(report(os.path.abspath(os.path.join(args.out, args.mesh)),
+                 args.mesh))
 
 
 if __name__ == "__main__":

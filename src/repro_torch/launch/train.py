@@ -8,18 +8,28 @@ reference's demo loop does.  ``--offload POLICY`` instead runs the arch
 through the SSD-offloaded ``OffloadSession`` (StreamPlan schedules,
 lookahead prefetch, host Adam on NVMe-resident state), with the policy
 selected by registry name.  ``--device`` (default ``cuda``) is the port's
-one addition; the reference's ``--production-mesh`` has no counterpart
-(one card has no mesh).
+addition.
+
+Meshes (:mod:`repro_torch.launch.mesh`): ``--production-mesh`` runs the
+resident step over the 16x16 ("data", "model") mesh, as the reference's
+flag does; it needs a process group of world size 256 — under
+``torchrun`` (its ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` environment),
+one rank a card — and raises without one.  ``--host-mesh`` runs it over
+the 1x1 mesh of a one-rank group opened here (``nccl`` on the card,
+``gloo`` on the CPU).  With neither flag the resident loop runs on plain
+tensors, one card: the one difference from the reference, whose default
+is the host mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --steps 20 [--reduced] [--batch 4] [--seq 128] [--offload memascend] \\
-      [--device cpu]
+      [--device cpu] [--host-mesh | --production-mesh]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 import time
 
@@ -94,10 +104,43 @@ def resident_loop(step, params, batches, *, lr: float,
 
 
 def run_resident(cfg, args) -> None:
-    """The device-resident path: build, train step, loss scaler, SGD."""
+    """The device-resident path: build, train step, loss scaler, SGD (over
+    a mesh when a flag asks for one)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (make_host_mesh,
+                                         make_production_mesh,
+                                         one_rank_group)
     dev = resolve_device(args.device)
-    impl = build(cfg, device=dev)
-    step = build_train_step(impl)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if args.host_mesh:
+        with one_rank_group(backend):
+            _resident(cfg, args, dev, make_host_mesh(device_type=dev.type))
+        return
+    if not args.production_mesh:
+        _resident(cfg, args, dev, None)
+        return
+    # under torchrun: one rank a card, the group from its environment
+    opened = not dist.is_initialized() and "WORLD_SIZE" in os.environ
+    if opened:
+        dist.init_process_group(backend)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    try:
+        _resident(cfg, args, dev, make_production_mesh(device_type=dev.type))
+    finally:
+        if opened:
+            dist.destroy_process_group()
+
+
+def _resident(cfg, args, dev, mesh) -> None:
+    from repro_torch.launch.sharding import place
+    from repro_torch.models.registry import TensorSpec
+    hint = None
+    if mesh is not None:
+        from repro_torch.train.step import make_act_hint
+        hint = make_act_hint(mesh)
+    impl = build(cfg, device=dev, hint=hint)
     params = impl.init_params(0)
     scaler = DynamicLossScaler(scale=1.0)   # bf16 compute
     b, s = args.batch, args.seq
@@ -110,6 +153,18 @@ def run_resident(cfg, args) -> None:
                                      dtype=torch.bfloat16, device=dev)
     dl = DataLoader(SyntheticTextDataset(vocab=cfg.vocab, seed=0),
                     batch=b, seq_len=s)
+    if mesh is None:
+        step = build_train_step(impl)
+    else:
+        batch_shape = {"tokens": TensorSpec((b, s), torch.int32),
+                       "labels": TensorSpec((b, s), torch.int32),
+                       **{k: TensorSpec(tuple(v.shape), v.dtype)
+                          for k, v in extra.items()}}
+        step, in_placements, _out = build_train_step(
+            impl, mesh, batch_shape=batch_shape)
+        params = place(params, in_placements[0], mesh)
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"({mesh.device_type})")
 
     def batches():
         for _ in range(args.steps):
@@ -150,6 +205,12 @@ def main(argv=None) -> None:
                          "async H2D only, or the full pipeline")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
+    meshes = ap.add_mutually_exclusive_group()
+    meshes.add_argument("--production-mesh", action="store_true",
+                        help="the 16x16 mesh (a process group of 256 "
+                             "ranks, e.g. under torchrun)")
+    meshes.add_argument("--host-mesh", action="store_true",
+                        help="the 1x1 mesh of a one-rank group")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

@@ -36,6 +36,8 @@ import math
 
 import torch
 
+from .dist import (einsum, merge_heads, split_heads, whole, whole_last,
+                   write_row)
 from .layers import apply_rope, dense, rms_norm, split_positions
 
 NEG_INF = -1e30
@@ -57,7 +59,7 @@ def _neg_inf(device):
 def _scores(q, k):
     """fp32 (B, H, Sq, Sk) scores of (B, Sq, H, D) x (B, Sk, H, D) — the
     reference's ``preferred_element_type=float32`` einsum."""
-    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    return einsum("bqhd,bkhd->bhqk", q.float(), k.float())
 
 
 def attention_scores(q, k, v, *, causal: bool, window: int = 0,
@@ -83,17 +85,16 @@ def attention_scores(q, k, v, *, causal: bool, window: int = 0,
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
     scores = torch.where(mask, scores, _neg_inf(q.device))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+    return einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
 
 
 def gqa_project_qkv(params, x, cfg, positions):
     """Project and rope q/k/v.  Returns (q, k, v) with heads unfolded."""
-    b, s, _ = x.shape
-    q = dense(x, params["attn.w_q"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = dense(x, params["attn.w_k"]).reshape(b, s, cfg.n_kv_heads,
-                                             cfg.head_dim)
-    v = dense(x, params["attn.w_v"]).reshape(b, s, cfg.n_kv_heads,
-                                             cfg.head_dim)
+    q = split_heads(dense(x, params["attn.w_q"]), cfg.n_heads, cfg.head_dim)
+    k = split_heads(dense(x, params["attn.w_k"]), cfg.n_kv_heads,
+                    cfg.head_dim)
+    v = split_heads(dense(x, params["attn.w_v"]), cfg.n_kv_heads,
+                    cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, params["attn.q_norm"], cfg.rms_eps)
         k = rms_norm(k, params["attn.k_norm"], cfg.rms_eps)
@@ -113,7 +114,7 @@ def gqa_attention(params, x, cfg, *, causal=True, window=None,
     w = cfg.sliding_window if window is None else window
     out = attention_scores(q, k, v, causal=causal, window=w,
                            prefix_len=prefix_len)
-    return dense(out.reshape(b, s, -1), params["attn.w_o"])
+    return dense(merge_heads(out), params["attn.w_o"])
 
 
 def _einsum(eq, a, b):
@@ -121,7 +122,7 @@ def _einsum(eq, a, b):
     if a.dtype != b.dtype:
         res = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(res), b.to(res)
-    return torch.einsum(eq, a, b)
+    return einsum(eq, a, b)
 
 
 def _write_slot(cache, new, slot):
@@ -129,7 +130,7 @@ def _write_slot(cache, new, slot):
     of axis 1, out of place: ``jax.lax.dynamic_update_slice``, whose start
     is clamped into range."""
     start = torch.clamp(slot, 0, cache.shape[1] - 1).reshape(1)
-    return cache.index_copy(1, start, new.to(cache.dtype))
+    return write_row(cache, new.to(cache.dtype), start)
 
 
 def gqa_decode(params, x, cfg, cache, cache_len):
@@ -160,17 +161,17 @@ def gqa_decode(params, x, cfg, cache, cache_len):
         valid = valid & (idx != slot)
     scores = torch.where(valid, scores, _neg_inf(x.device))
 
-    s_new = (torch.einsum("bqhd,bqhd->bhq", q, _repeat_kv(k_new, n_rep))
+    s_new = (einsum("bqhd,bqhd->bhq", q, _repeat_kv(k_new, n_rep))
              / scale).float()[..., None]
-    m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_new)
+    m = torch.maximum(whole(scores.amax(dim=-1, keepdim=True)), s_new)
     p_old = torch.exp(scores - m)
     p_new = torch.exp(s_new - m)                           # (B,H,1,1)
-    denom = p_old.sum(dim=-1, keepdim=True) + p_new
+    denom = whole(p_old.sum(dim=-1, keepdim=True)) + p_new
     out_old = _einsum("bhqk,bkhd->bqhd", (p_old / denom).to(q.dtype), vv)
     w_new = (p_new / denom)[:, :, 0].to(q.dtype)           # (B,H,1)
     out_new = w_new.transpose(1, 2)[..., None] * _repeat_kv(v_new, n_rep)
-    out = (out_old + out_new).to(x.dtype)
-    out = dense(out.reshape(b, 1, -1), params["attn.w_o"])
+    out = (whole(out_old) + out_new).to(x.dtype)
+    out = dense(merge_heads(out), params["attn.w_o"])
     return out, {"k": _write_slot(cache["k"], k_new, slot),
                  "v": _write_slot(cache["v"], v_new, slot)}
 
@@ -187,7 +188,7 @@ def gqa_prefill(params, x, cfg, *, window=None):
     w = cfg.sliding_window if window is None else window
     out = attention_scores(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                            causal=True, window=w)
-    return dense(out.reshape(b, s, -1), params["attn.w_o"]), k, v
+    return dense(merge_heads(out), params["attn.w_o"]), k, v
 
 
 def gqa_step(params, x, cfg, k_cache, v_cache, cache_len, *, window=None,
@@ -327,12 +328,11 @@ def mla_project_q(params, x, cfg, positions):
     """Queries through the q latent: (B, S, H, nope + rope), the rope half
     rotated."""
     m = cfg.mla
-    b, s, _ = x.shape
     q_lat = dense(x, params["attn.w_dq"])                    # (B,S,q_rank)
     if "attn.q_lat_norm" in params:
         q_lat = rms_norm(q_lat, params["attn.q_lat_norm"], cfg.rms_eps)
-    q = dense(q_lat, params["attn.w_uq"]).reshape(
-        b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = split_heads(dense(q_lat, params["attn.w_uq"]), cfg.n_heads,
+                    m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
                              dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -343,7 +343,7 @@ def mla_compress_kv(params, x, cfg, positions):
     """The cached latent: (c_kv (B, S, kv_rank), k_rope (B, S, rope)), the
     one rope head shared by every query head."""
     m = cfg.mla
-    ckv = dense(x, params["attn.w_dkv"])                     # (B,S,rank+rope)
+    ckv = whole_last(dense(x, params["attn.w_dkv"]))         # (B,S,rank+rope)
     c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
@@ -357,8 +357,8 @@ def mla_expand_kv(params, c_kv, k_rope, cfg):
     b, s, _ = c_kv.shape
     if "attn.kv_lat_norm" in params:
         c_kv = rms_norm(c_kv, params["attn.kv_lat_norm"], cfg.rms_eps)
-    kv = dense(c_kv, params["attn.w_ukv"]).reshape(
-        b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    kv = split_heads(dense(c_kv, params["attn.w_ukv"]), cfg.n_heads,
+                     m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k_rope_b = k_rope[:, :, None, :].expand(b, s, cfg.n_heads,
                                             m.qk_rope_head_dim)
@@ -374,7 +374,7 @@ def mla_attention(params, x, cfg, *, causal=True, window=None):
     k, v = mla_expand_kv(params, c_kv, k_rope, cfg)
     w = cfg.sliding_window if window is None else window
     out = attention_scores(q, k, v, causal=causal, window=w)
-    return dense(out.reshape(b, s, -1), params["attn.w_o"])
+    return dense(merge_heads(out), params["attn.w_o"])
 
 
 def mla_decode(params, x, cfg, cache, cache_len):
@@ -402,22 +402,20 @@ def mla_decode(params, x, cfg, cache, cache_len):
     scores = torch.where(valid, scores, _neg_inf(x.device))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _einsum("bhqk,bkhd->bqhd", probs, v).to(x.dtype)
-    out = dense(out.reshape(b, 1, -1), params["attn.w_o"])
+    out = dense(merge_heads(out), params["attn.w_o"])
     return out, {"ckv": ckv}
 
 
 def cross_attention(params, x, memory, cfg):
     """Decoder-to-encoder attention (whisper): no rope, no mask.
     x: (B, S, D) queries, memory: (B, S_mem, D) encoder output."""
-    b, s, _ = x.shape
-    sm = memory.shape[1]
-    q = dense(x, params["xattn.w_q"]).reshape(b, s, cfg.n_heads,
-                                              cfg.head_dim)
-    k = dense(memory, params["xattn.w_k"]).reshape(b, sm, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-    v = dense(memory, params["xattn.w_v"]).reshape(b, sm, cfg.n_kv_heads,
-                                                   cfg.head_dim)
+    q = split_heads(dense(x, params["xattn.w_q"]), cfg.n_heads,
+                    cfg.head_dim)
+    k = split_heads(dense(memory, params["xattn.w_k"]), cfg.n_kv_heads,
+                    cfg.head_dim)
+    v = split_heads(dense(memory, params["xattn.w_v"]), cfg.n_kv_heads,
+                    cfg.head_dim)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     out = attention_scores(q, k, v, causal=False)
-    return dense(out.reshape(b, s, -1), params["xattn.w_o"])
+    return dense(merge_heads(out), params["xattn.w_o"])

@@ -14,6 +14,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .dist import (embed_rows, gold_logits, logsumexp_last, matmul, weight,
+                   whole)
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; asking for CUDA without a card
@@ -39,11 +42,15 @@ def rms_norm(x, weight, eps: float = 1e-6):
 
 def dense(x, w):
     """x @ w.  Equal 16-bit operands stay 16-bit end to end; mixed inputs
-    promote as in jnp and the result is cast back to x's dtype."""
+    promote as in jnp and the result is cast back to x's dtype.  On a
+    mesh the weight is gathered over the batch axes first and a
+    row-parallel product's partial sums are all-reduced (``dist.weight``,
+    ``dist.whole``), as tensor parallelism does."""
+    w = weight(w)
     if w.dtype == x.dtype:
-        return torch.matmul(x, w)
+        return whole(matmul(x, w))
     res = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(res), w.to(res)).to(x.dtype)
+    return whole(matmul(x.to(res), w.to(res)).to(x.dtype))
 
 
 def split_positions(x) -> list:
@@ -109,7 +116,7 @@ def sinusoidal_positions(n_pos: int, dim: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def embed_lookup(table, tokens, *, scale: bool = False):
-    out = F.embedding(tokens, table)
+    out = embed_rows(table, tokens)
     if scale:  # gemma multiplies by sqrt(d_model)
         out = out * torch.tensor(math.sqrt(table.shape[1]), dtype=out.dtype,
                                  device=out.device)
@@ -120,11 +127,12 @@ def lm_logits(h, table_or_head, *, transpose: bool = False):
     """Final projection; ``transpose`` for tied (vocab, d) tables.  The
     product runs in the activation dtype (mixed inputs promote as in jnp)
     and is upcast to fp32 after."""
-    w = table_or_head.T if transpose else table_or_head
+    w = weight(table_or_head)
+    w = w.T if transpose else w
     if w.dtype != h.dtype:
         res = torch.promote_types(h.dtype, w.dtype)
         h, w = h.to(res), w.to(res)
-    return torch.matmul(h, w).float()
+    return matmul(h, w).float()
 
 
 def cross_entropy(logits, labels, *, mask=None):
@@ -132,8 +140,8 @@ def cross_entropy(logits, labels, *, mask=None):
     logits = logits.float()
     valid = (labels >= 0) if mask is None else mask
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe_labels[..., None]).squeeze(-1)
+    logz = logsumexp_last(logits)
+    gold = gold_logits(logits, safe_labels)
     nll = (logz - gold) * valid.float()
     return nll.sum() / torch.clamp(valid.sum().float(), min=1.0)
 

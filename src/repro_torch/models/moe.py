@@ -26,7 +26,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
+from .dist import (BATCH_AXES, _batch_placements, _global, mesh_of,
+                   replicated, weight)
 from .layers import dense
 
 
@@ -79,6 +84,29 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(res), b.to(res)).to(a.dtype)
 
 
+def _route(logits, cfg, idx=None):
+    """Routing from the (T, E) router logits: (weights (T, k) fp32, each
+    (token, choice)'s expert (T*k,), its rank within that expert (T*k,),
+    the load-balance loss).  ``idx`` pins the choice (:func:`moe_ffn`)."""
+    t, k = logits.shape[0], cfg.moe.top_k
+    if idx is None:
+        w, idx, aux = router_topk(logits, k)
+    else:
+        idx = torch.as_tensor(idx, device=logits.device).reshape(t, k).long()
+        probs = torch.softmax(logits.float(), dim=-1)
+        w = torch.gather(probs, -1, idx)
+        w = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)).float()
+        aux = _aux_loss(probs, idx, k)
+    flat_e = idx.reshape(-1)                                   # (T*k,)
+    return w, flat_e, _positions_in_expert(flat_e, t * k), aux
+
+
+def _capacity(cfg, t: int) -> int:
+    """Slots per expert for ``t`` tokens."""
+    e = cfg.moe
+    return int(max(e.top_k * t // e.n_experts * e.capacity_factor, 4))
+
+
 def moe_ffn(params, x, cfg, idx=None):
     """Routed expert FFN (+ shared experts).  x: (B, S, D) -> (B, S, D).
 
@@ -91,26 +119,22 @@ def moe_ffn(params, x, cfg, idx=None):
     routing stage's choice, so the host's fetch decision and the expert
     compute agree by construction.  The weights are re-gathered from the
     softmax at those indices, which equals the top-k values bit for bit
-    when ``idx`` came from the same logits."""
+    when ``idx`` came from the same logits.
+
+    On DTensors the routing runs on every token of the batch on each
+    rank and each rank computes its own block of the expert slots
+    (:func:`_moe_ffn_meshed`)."""
+    if mesh_of(x) is not None:
+        return _moe_ffn_meshed(params, x, cfg, idx)
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
     k = e.top_k
     xf = x.reshape(t, d)
 
-    logits = dense(xf, params["moe.w_router"])
-    if idx is None:
-        w, idx, aux = router_topk(logits, k)
-    else:
-        idx = torch.as_tensor(idx, device=x.device).reshape(t, k).long()
-        probs = torch.softmax(logits.float(), dim=-1)
-        w = torch.gather(probs, -1, idx)
-        w = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)).float()
-        aux = _aux_loss(probs, idx, k)
-
-    capacity = int(max(k * t // e.n_experts * e.capacity_factor, 4))
-    flat_e = idx.reshape(-1)                                   # (T*k,)
-    pos = _positions_in_expert(flat_e, t * k)                  # (T*k,)
+    w, flat_e, pos, aux = _route(dense(xf, params["moe.w_router"]), cfg,
+                                 idx)
+    capacity = _capacity(cfg, t)
     keep = pos < capacity
     # row of each (token, choice) in the flat (E*C, D) buffers; dropped
     # pairs go to the scratch row E*C, which nothing reads
@@ -145,3 +169,116 @@ def moe_ffn(params, x, cfg, idx=None):
         yf = yf + dense(F.silu(g) * u, params["moe.shared_down"])
 
     return yf.reshape(b, s, d), aux * e.router_aux_weight
+
+
+def _moe_ffn_meshed(params, x, cfg, idx=None):
+    """:func:`moe_ffn` on a DTensor ``x``: expert parallel.
+
+    The router logits are computed where the batch lies and gathered; the
+    routing then runs on every token of the batch on each rank (the
+    capacity, the ranks within an expert and the load-balance loss depend
+    on all of them; the dispatch's ``searchsorted`` has no sharding
+    strategy).  The (E, C) expert slots are split into blocks: experts
+    where the expert stacks are split along their dim 0 (over "model",
+    as ``param_specs`` places them), slots over the batch axes.
+
+    * dispatch: each rank writes its own tokens routed to its experts
+      into an (E_rank, C, D) buffer, every other row 0; the buffers meet in
+      a reduce-scatter over the batch axes onto the slot blocks (each row
+      written by one rank);
+    * experts: each rank runs its experts' MLPs on its block with its
+      shards of the stacks (gathered over the batch axes only, ZeRO-3's
+      per-layer gather);
+    * combine: the blocks are gathered back over the batch axes, each
+      rank weights the rows of its tokens' choices of its experts (0
+      elsewhere), and the (B, S, k, D) partial sums meet over "model";
+      the k choices are then added in the one-card order.
+
+    Each sum has one non-zero term, so on any mesh every value is the one
+    the one-card step computes from the same products."""
+    mesh = x.device_mesh
+    e = cfg.moe
+    b, s, d = x.shape
+    t, k = b * s, e.top_k
+    capacity = _capacity(cfg, t)
+    w, flat_e, pos, aux = replicated(
+        lambda lg: _route(lg.reshape(t, e.n_experts), cfg, idx),
+        dense(x, params["moe.w_router"]))
+
+    stacks = [weight(params[n]) for n in
+              ("moe.w_gate", "moe.w_up", "moe.w_down")]
+    names = mesh.mesh_dim_names
+    # per mesh dim: the (E, C) dim it splits, or None
+    split = [1 if names[i] in BATCH_AXES else
+             0 if all(w_.placements[i] == Shard(0) for w_ in stacks)
+             else None for i in range(mesh.ndim)]
+    x_pl = _batch_placements(x)                # Shard(0) or Replicate
+    rows = [p == Shard(0) for p in x_pl]       # dims whose ranks own rows
+
+    def pl(expert, slot, other):
+        return [expert if c == 0 else slot if c == 1 else other
+                for c in split]
+
+    def gl(expert, slot, other):
+        """Like :func:`pl`, Partial where ranks own different rows."""
+        return [Partial() if r and c != 0 else p for r, c, p in
+                zip(rows, split, pl(expert, slot, other))]
+
+    experts = pl(Shard(0), Replicate(), Replicate())
+    gate_w, up_w, down_w = (
+        w_.redistribute(mesh, experts).to_local(
+            grad_placements=pl(Shard(0), Partial(), Replicate()))
+        for w_ in stacks)
+    tok_grad = [Shard(0) if r else Partial() if c == 0 else Replicate()
+                for r, c in zip(rows, split)]
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=tok_grad)
+    wl = w.to_local(grad_placements=[
+        Partial() if r or c == 0 else Replicate()
+        for r, c in zip(rows, split)])
+    flat_e, pos = flat_e.to_local(), pos.to_local()
+
+    # this rank's rows of the batch and experts of the stacks
+    (bl, *_), (b0, *_) = compute_local_shape_and_global_offset(
+        x.shape, mesh, x_pl)
+    (ne, _), (e0, _) = compute_local_shape_and_global_offset(
+        (e.n_experts, capacity), mesh, experts)
+    tl = bl * s
+    own = slice(b0 * s * k, (b0 * s + tl) * k)
+    fe, ps, wl = flat_e[own], pos[own], wl[b0 * s:b0 * s + tl]
+    el = fe - e0
+    inside = (ps < capacity) & (el >= 0) & (el < ne)
+    scratch = ne * capacity
+    row = torch.where(inside, el * capacity + ps,
+                      torch.full_like(ps, scratch))
+
+    xf = xl.reshape(tl, d)
+    rep = xf[:, None, :].expand(tl, k, d).reshape(tl * k, d)
+    buf = xf.new_zeros((scratch + 1, d)).index_put(
+        (row,), rep)[:scratch].reshape(ne, capacity, d)
+    block = pl(Shard(0), Shard(1), Replicate())
+    dispatched = _global(
+        buf, mesh, gl(Shard(0), Replicate(), Replicate()),
+        (e.n_experts, capacity, d)).redistribute(mesh, block).to_local()
+    up = _bmm(dispatched, up_w)
+    gate = _bmm(dispatched, gate_w)
+    out_e = _bmm(F.silu(gate) * up, down_w)                 # (ne, nc, D)
+    out_e = _global(out_e, mesh, block, (e.n_experts, capacity, d)) \
+        .redistribute(mesh, experts).to_local(
+            grad_placements=gl(Shard(0), Replicate(), Replicate()))
+
+    out_rows = torch.cat([out_e.reshape(scratch, d), xf.new_zeros((1, d))])
+    wk = (wl.reshape(-1) * inside).to(x.dtype)
+    contrib = (out_rows[row] * wk[:, None]).reshape(bl, s, k, d)
+    contrib = _global(contrib, mesh,
+                      [Partial() if c == 0 else p
+                       for c, p in zip(split, x_pl)],
+                      (b, s, k, d)).redistribute(mesh, x_pl)
+    y = x.new_zeros((b, s, d))
+    for j in range(k):
+        y = y + contrib[:, :, j]
+
+    if "moe.shared_up" in params:
+        u = dense(x, params["moe.shared_up"])
+        g = dense(x, params["moe.shared_gate"])
+        y = y + dense(F.silu(g) * u, params["moe.shared_down"])
+    return y, aux * e.router_aux_weight

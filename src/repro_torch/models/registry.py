@@ -84,6 +84,13 @@ class ModelImpl:
                 TensorSpec((), torch.int32))
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """``cfg``'s parameter tree on the meta device (shapes and dtypes, no
+    memory): the counterpart of the reference's ``eval_shape`` of
+    ``init_params``."""
+    return build(cfg, device="meta").init_params(0)
+
+
 def _specs_of(tree):
     if isinstance(tree, dict):
         return {k: _specs_of(v) for k, v in tree.items()}
@@ -109,17 +116,20 @@ def _lm_input_specs(cfg: ModelConfig, shape: InputShape,
 
 
 def build(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-          remat: bool = True, bf16_logits: bool = False,
+          remat: bool = True, bf16_logits: bool = False, hint=None,
           device="cuda") -> ModelImpl:
     """The resident model's functions for ``cfg`` on ``device`` (where
-    ``init_params`` draws from a seed and ``init_cache`` allocates)."""
+    ``init_params`` draws from a seed and ``init_cache`` allocates).
+    ``hint`` re-asserts the activation sharding on a mesh after the
+    embedding and every layer group (attention-family models; the audio
+    family takes none, as in the reference)."""
     dev = resolve_device(device)
     if cfg.family == "audio":
         return _build_whisper(cfg, compute_dtype, remat, dev)
 
     def loss_fn(params, batch):
         return tfm.lm_loss(cfg, params, batch, compute_dtype=compute_dtype,
-                           remat=remat, bf16_logits=bf16_logits)
+                           remat=remat, bf16_logits=bf16_logits, hint=hint)
 
     def prefill_fn(params, batch):
         h = tfm.embed_tokens(cfg, params, batch["tokens"], compute_dtype)
@@ -128,7 +138,10 @@ def build(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             h = torch.cat([batch["image_embeds"].to(compute_dtype), h],
                           dim=1)
             prefix = cfg.prefix_len
-        h, _ = tfm.forward(cfg, params, h, prefix_len=prefix, remat=remat)
+        if hint is not None:
+            h = hint(h)
+        h, _ = tfm.forward(cfg, params, h, prefix_len=prefix, remat=remat,
+                           hint=hint)
         logits = tfm.logits_fn(cfg, params, h)
         return logits.to(torch.bfloat16) if bf16_logits else logits
 

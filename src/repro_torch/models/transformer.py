@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from . import mamba as mamba_mod
 from . import xlstm as xlstm_mod
+from .dist import replicated, roll_seq
 from .attention import gqa_attention, gqa_decode, mla_attention, mla_decode
 from .layers import (cross_entropy, dense, draw_specs, draw_stacked,
                      embed_lookup, fan_in_, gated_mlp, generator_of,
@@ -236,13 +237,26 @@ def apply_mixer(cfg: ModelConfig, mk: str, params, hn, *,
                              prefix_len=prefix_len)
     if mk == "mla":
         return mla_attention(params, hn, cfg, causal=causal)
-    if mk == "mamba":
-        return mamba_mod.mamba_mixer(params, hn, cfg)
-    if mk == "mlstm":
-        return xlstm_mod.mlstm_mixer(params, hn, cfg)
-    if mk == "slstm":
-        return xlstm_mod.slstm_mixer(params, hn, cfg)
+    if mk in _RECURRENT:
+        # the scans' views, einsums and indexing have no sharding
+        # propagation: on a mesh each rank runs its own batch rows whole
+        mixer, _step, prefix = _RECURRENT[mk]
+        return replicated(lambda p, x: mixer(p, x, cfg),
+                          _prefixed(params, prefix), hn, batch=(1,))
     raise ValueError(mk)
+
+
+# recurrent mixer kind -> (full-sequence mixer, one-token step, the
+# prefix of its parameters)
+_RECURRENT = {"mamba": (mamba_mod.mamba_mixer, mamba_mod.mamba_decode, "ssm"),
+              "mlstm": (xlstm_mod.mlstm_mixer, xlstm_mod.mlstm_decode,
+                        "mlstm"),
+              "slstm": (xlstm_mod.slstm_mixer, xlstm_mod.slstm_decode,
+                        "slstm")}
+
+
+def _prefixed(params: dict, prefix: str) -> dict:
+    return {k: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
 def _n_groups(params) -> int:
@@ -254,9 +268,12 @@ def _group(stacked: dict, g: int) -> dict:
 
 
 def forward(cfg: ModelConfig, params, h, *, prefix_len: int = 0,
-            causal: bool = True, remat: bool = True):
+            causal: bool = True, remat: bool = True, hint=None):
     """Run the layer stack over embedded inputs h: (B, S, D).  Returns
-    ``(final-normed h, aux)``."""
+    ``(final-normed h, aux)``.  ``hint`` (optional) re-asserts the
+    activation sharding after every layer group
+    (:func:`repro_torch.train.step.make_act_hint`), as the reference's
+    does."""
     p = layer_period(cfg)
     kinds = [(mixer_kind(cfg, j), ffn_kind(cfg, j)) for j in range(p)]
 
@@ -275,6 +292,8 @@ def forward(cfg: ModelConfig, params, h, *, prefix_len: int = 0,
                                 use_reentrant=False)
         else:
             h, aux = group_body(h, aux, gparams)
+        if hint is not None:
+            h = hint(h)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
 
 
@@ -294,7 +313,7 @@ def embed_tokens(cfg: ModelConfig, params, tokens, dtype):
 # ---------------------------------------------------------------------------
 
 def lm_loss(cfg: ModelConfig, params, batch, *, compute_dtype=torch.bfloat16,
-            remat: bool = True, bf16_logits: bool = False):
+            remat: bool = True, bf16_logits: bool = False, hint=None):
     """Causal-LM loss.  batch: tokens (B, S), labels (B, S) [+ image_embeds
     (B, prefix, D) for VLM configs, ahead of the text as a bidirectional
     prefix; the loss is taken on text positions only].  MTP configs add
@@ -307,7 +326,10 @@ def lm_loss(cfg: ModelConfig, params, batch, *, compute_dtype=torch.bfloat16,
         img = batch["image_embeds"].to(compute_dtype)
         h = torch.cat([img, h], dim=1)
         prefix = cfg.prefix_len
-    h, aux = forward(cfg, params, h, prefix_len=prefix, remat=remat)
+    if hint is not None:
+        h = hint(h)
+    h, aux = forward(cfg, params, h, prefix_len=prefix, remat=remat,
+                     hint=hint)
     if prefix:
         h = h[:, prefix:]
     logits = logits_fn(cfg, params, h)
@@ -316,7 +338,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, compute_dtype=torch.bfloat16,
     loss = cross_entropy(logits, labels)
 
     if cfg.mtp:
-        emb_next = embed_tokens(cfg, params, torch.roll(tokens, -1, dims=1),
+        emb_next = embed_tokens(cfg, params, roll_seq(tokens, -1),
                                 compute_dtype)
         h_in = dense(torch.cat(
             [rms_norm(h, params["mtp_norm"], cfg.rms_eps), emb_next],
@@ -325,7 +347,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, compute_dtype=torch.bfloat16,
                  ffn_kind(cfg, cfg.n_layers - 1))
         h_mtp, a2 = apply_layer(cfg, kinds, params["mtp"], h_in)
         logits2 = logits_fn(cfg, params, h_mtp)
-        loss2 = cross_entropy(logits2, torch.roll(labels, -1, dims=1))
+        loss2 = cross_entropy(logits2, roll_seq(labels, -1))
         loss = loss + 0.3 * loss2
         aux = aux + a2
     return loss + aux
@@ -393,12 +415,11 @@ def apply_layer_decode(cfg, kinds, params, h, cache, cache_len):
         mix, cache = gqa_decode(params, hn, cfg, cache, cache_len)
     elif mk == "mla":
         mix, cache = mla_decode(params, hn, cfg, cache, cache_len)
-    elif mk == "mamba":
-        mix, cache = mamba_mod.mamba_decode(params, hn, cfg, cache)
-    elif mk == "mlstm":
-        mix, cache = xlstm_mod.mlstm_decode(params, hn, cfg, cache)
-    elif mk == "slstm":
-        mix, cache = xlstm_mod.slstm_decode(params, hn, cfg, cache)
+    elif mk in _RECURRENT:
+        _mixer, step, prefix = _RECURRENT[mk]
+        mix, cache = replicated(lambda p, x, c: step(p, x, cfg, c),
+                                _prefixed(params, prefix), hn, cache,
+                                batch=(1, 2))
     else:
         raise ValueError(mk)
     h, _aux = apply_ffn(cfg, fk, params, h + mix)

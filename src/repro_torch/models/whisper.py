@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from .dist import merge_heads, split_heads
 from .attention import (_repeat_kv, attention_scores, cross_attention,
                         gqa_attention, gqa_decode)
 from .layers import (cross_entropy, dense, draw_stacked, embed_lookup,
@@ -178,12 +179,11 @@ def init_whisper_cache(cfg: ModelConfig, batch: int, cache_seq: int,
 def prefill_cross_cache(cfg: ModelConfig, params, memory, cache) -> dict:
     """A new cache whose cross K/V come from the encoder ``memory`` (once
     a request)."""
-    b, sm = memory.shape[:2]
     lps = params["dec_layers"]
 
     def proj(name):
         return torch.stack([
-            dense(memory, w).reshape(b, sm, cfg.n_kv_heads, cfg.head_dim)
+            split_heads(dense(memory, w), cfg.n_kv_heads, cfg.head_dim)
             for w in lps[name]])
 
     return {**cache, "xk": proj("xattn.w_k").to(cache["xk"].dtype),
@@ -195,7 +195,6 @@ def whisper_decode_step(cfg: ModelConfig, params, cache, tokens, cache_len,
     """One decoder token against the self and cross K/V caches.  Returns
     (logits (B, 1, V) fp32, new cache); the cache passed in is left as it
     was."""
-    b = tokens.shape[0]
     h = embed_lookup(params["embed"], tokens).to(compute_dtype)
     table = _positions(cache["k"].shape[2] + 1, cfg, h)
     # ``dynamic_slice_in_dim`` clamps its start into range
@@ -213,12 +212,12 @@ def whisper_decode_step(cfg: ModelConfig, params, cache, tokens, cache_len,
         new_k.append(kv["k"])
         new_v.append(kv["v"])
         hn = rms_norm(h, lp["norm_xattn"], cfg.rms_eps)
-        q = dense(hn, lp["xattn.w_q"]).reshape(b, 1, cfg.n_heads,
-                                               cfg.head_dim)
+        q = split_heads(dense(hn, lp["xattn.w_q"]), cfg.n_heads,
+                        cfg.head_dim)
         out = attention_scores(q, _repeat_kv(cache["xk"][g], n_rep),
                                _repeat_kv(cache["xv"][g], n_rep),
                                causal=False)
-        h = h + dense(out.reshape(b, 1, -1), lp["xattn.w_o"])
+        h = h + dense(merge_heads(out), lp["xattn.w_o"])
         hn = rms_norm(h, lp["norm_ffn"], cfg.rms_eps)
         h = h + gated_mlp(hn, lp["ffn.w_up"], lp["ffn.w_down"],
                           cfg.gated_act)

@@ -1,8 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the page-locked allocator backings, cached and uncached decode,
 continuous batching, speculative verify, the training step, MoE expert
-paging and the resident model families (MLA, jamba, xLSTM, whisper) on
-the device.
+paging, the resident model families (MLA, jamba, xLSTM, whisper) and the
+meshed steps on a one-rank NCCL mesh on the device.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device.  The file imports neither JAX nor the reference package, so it
@@ -928,3 +928,59 @@ def test_each_kernel_holds_to_its_ref_oracle(cuda):
         ulp = torch.finfo(torch.bfloat16).eps * want[3].float().abs().clamp(
             min=torch.finfo(torch.bfloat16).tiny)
         assert ((got[3].float() - want[3].float()).abs() <= ulp).all()
+
+
+# -- the (data, model) mesh on the card -----------------------------------------
+
+MESH_ARCHS = ["qwen3-4b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+              "jamba-v0.1-52b", "xlstm-1.3b", "paligemma-3b", "gemma-7b"]
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_meshed_steps_equal_the_unmeshed_on_the_card(cuda, arch):
+    """A one-rank NCCL group and the 1x1 host mesh on the card: the meshed
+    train step's loss and gathered gradients and four decode steps'
+    logits under "zero3" and "tp" equal the unmeshed steps' bit for bit
+    at bf16 compute, and the overflow kernel launches once a gradient's
+    local shard."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+    from repro_torch.models import build
+    from repro_torch.serve.decode import build_serve_step
+    from repro_torch.train.step import build_train_step, tree_leaves
+    cfg = ARCHS[arch].reduced()
+    impl = build(cfg, compute_dtype=torch.bfloat16, device=cuda)
+    params = impl.init_params(0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    specs = impl.input_specs(InputShape("t", 64 + (cfg.prefix_len or 0), 2,
+                                        "train"))
+    batch = {k: torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                              device=cuda, dtype=v.dtype)
+             for k, v in specs.items()}
+    want_loss, want, _ov = build_train_step(impl)(params, batch, 1.0)
+    shape = InputShape("d", 32, 2, "decode")
+    serve, _s = build_serve_step(impl, shape)
+    cache = impl.init_cache(2, 32, torch.bfloat16)
+    toks = batch["tokens"][:, :4]
+    with one_rank_group("nccl"):
+        mesh = make_host_mesh()
+        step, in_pl, _out = build_train_step(impl, mesh, batch_shape=specs)
+        overflow_flag_cuda_.launches = 0
+        loss, grads, overflow = step(shd.place(params, in_pl[0], mesh),
+                                     batch, 1.0)
+        torch.cuda.synchronize()
+        assert overflow_flag_cuda_.launches == len(tree_leaves(want))
+        assert torch.equal(loss, want_loss) and not bool(overflow)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(shd.full_tree(grads)), tree_leaves(want)))
+        for mode in ("zero3", "tp"):
+            mserve, s_in, _o, _a = build_serve_step(impl, shape, mesh,
+                                                    param_mode=mode)
+            mparams = shd.place(params, s_in[0], mesh)
+            c1 = c2 = cache
+            for t in range(toks.shape[1]):
+                a, c1 = serve(params, c1, toks[:, t:t + 1], t)
+                b, c2 = mserve(mparams, c2, toks[:, t:t + 1], t)
+                assert torch.equal(b.full_tensor(), a), (mode, t)
