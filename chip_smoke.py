@@ -60,7 +60,7 @@ Phases (each raises on failure; the script exits non-zero):
       the cached prefill's (the gap is printed: 0 since both run
       ``attention_scores``), token agreement with the cached path;
    b. continuous batching, ``ServingEngine.run`` over 8 requests with
-      seeded prompts of 64-448 tokens, 8-16 new tokens and arrivals over
+      seeded prompts of 64-448 tokens, 4-8 new tokens and arrivals over
       ~2 s: every request done, no attention-kernel launch, retired
       slots' pages reclaimed, two requests re-run alone through a fresh
       engine give the same tokens;
@@ -79,7 +79,7 @@ Phases (each raises on failure; the script exits non-zero):
       per gradient tensor a step, the expert bytes, stage gets and hits
       of each arm;
    b. cached decode at ``--moe-layers`` depth: batch 4, 512-token
-      prompts, 16 new tokens under ``"all"`` and ``"routed"``: equal
+      prompts, 8 new tokens under ``"all"`` and ``"routed"``: equal
       tokens, the routed arm moving fewer expert bytes;
 10. the device-resident path (``repro_torch.models.build``,
     ``train.build_train_step``, ``serve.build_serve_step``):
@@ -101,7 +101,7 @@ Phases (each raises on failure; the script exits non-zero):
        decode-vs-forward bound, router capacity 16 as it sets it); the
        bf16 gap is printed beside it;
     c. offloaded MLA uncached decode, the same width and depth, from bf16
-       host units: ``generate(use_cache=False)`` of 4 tokens after a
+       host units: ``generate(use_cache=False)`` of 2 tokens after a
        32-token prompt, batch 1, under ``expert_paging="all"`` and then
        ``"routed"`` (768 host expert pages each, each arm's store dropped
        after it): equal tokens, the routed arm moving fewer expert
@@ -124,7 +124,7 @@ Phases (each raises on failure; the script exits non-zero):
     with a bf16 tree drawn on the card from the seed, cut in depth only:
     jamba-v0.1-52b (``--jamba-layers``, one 8-layer interleave period: 7
     Mamba + 1 attention layer, 4 MoE + 4 dense FFNs, 26.6 GB),
-    xlstm-1.3b (``--xlstm-layers``, all 48 layers: 42 mLSTM + 6 sLSTM)
+    xlstm-1.3b (``--xlstm-layers``, 16 of 48 layers: 14 mLSTM + 2 sLSTM)
     and whisper-tiny (whole, frames from the seed as the stub
     frontend's).  Each runs three SGD steps (lr 1e-2, in place on the bf16
     tree) through ``build_train_step`` and the loss scaler at batch 2 x
@@ -158,7 +158,29 @@ Phases (each raises on failure; the script exits non-zero):
     argument, temp and peak bytes, collective bytes and counts by kind
     and roofline terms phase 10d prints (also to
     ``chiprun_out/mesh_phase.json``);
-13. print the ``kernels`` JSON line, the card line, and the result line.
+13. the paper's comparison (phase 18 in the code's section comments), run
+    after the side process is done and before the training phase: the
+    offloaded trainer (``make_offloadable_lm`` -> ``OffloadPolicy.preset``
+    -> ``OffloadSession.train_step``) on qwen3-4b at full width and
+    ``--compare-layers`` depth, the training phase's batch, Adam at the
+    preset's defaults plus lr 1e-3, in five arms — ``memascend``,
+    ``zero-infinity``, ``memascend-bf16`` at full overlap and
+    ``memascend`` at ``sync`` and ``h2d`` — each in a spawned process of
+    its own (after one that only initialises CUDA, the OS counters' base)
+    loading the kernels the parent built, on a store of its own deleted
+    after it: two steps, the second timed with ``synchronize`` inside the
+    window; the four fp32 arms' losses bit-equal at both steps,
+    memascend-bf16's step 1 equal and its step 2 finite, the overflow
+    kernel launched once a gradient tensor a step (zero under
+    zero-infinity, which screens on the host, count zeroed just before a
+    step and read just after), zero-infinity's pinned allocations at the
+    pow2 of their requests and its ``overflow_tmp`` peak at least 1.25x
+    the gradient flat buffer, the other arms' within 4 KiB and 0, every
+    arm's pool arena and flat buffer page-locked, each arm's
+    ``optimizer_io_bytes`` what ``AdamConfig``'s widths predict, and
+    zero-infinity's tracker peak above memascend's; one JSON line an arm
+    (also ``chiprun_out/compare.json``) and one summary line;
+14. print the ``kernels`` JSON line, the card line, and the result line.
 
 Needs one CUDA device.  Kernel builds and the SSD stores live under
 ``build/`` next to this script.
@@ -179,6 +201,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -196,6 +219,8 @@ from repro_torch.core import overflow as host_overflow  # noqa: E402
 from repro_torch.core.dtypes import cast_host, to_torch  # noqa: E402
 from repro_torch.core.loss_scale import DynamicLossScaler  # noqa: E402
 from repro_torch.core.model_adapter import make_offloadable_lm  # noqa: E402
+from repro_torch.core import (MemoryTracker, OffloadedAdam,  # noqa: E402
+                              next_power_of_two)
 from repro_torch.core.nvme import DirectNVMeEngine  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.fused_adam import (  # noqa: E402
@@ -1246,7 +1271,7 @@ def check_overflow_skip(args, workdir: str, device: str) -> dict:
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_BUCKET = 4, 640, 64
 UNCACHED_PROMPT, UNCACHED_NEW = 128, 3
 N_REQUESTS, ARRIVAL_SPAN_S = 8, 2.0
-SPEC_PATTERN, SPEC_PROMPT, SPEC_NEW, SPEC_K = 32, 256, 24, 4
+SPEC_PATTERN, SPEC_PROMPT, SPEC_NEW, SPEC_K = 32, 256, 12, 4
 
 
 def _serve_decoder(args, workdir: str):
@@ -1307,7 +1332,7 @@ def run_uncached(cfg, dec, rng) -> dict:
 
 def _requests(cfg, rng) -> list:
     lens = rng.integers(64, 449, N_REQUESTS)
-    budgets = rng.integers(8, 17, N_REQUESTS)
+    budgets = rng.integers(4, 9, N_REQUESTS)
     arrivals = np.sort(rng.uniform(0.0, ARRIVAL_SPAN_S, N_REQUESTS))
     arrivals[0] = 0.0
     return [Request(rid=f"r{i}", prompt=rng.integers(0, cfg.vocab, int(n)),
@@ -1461,7 +1486,7 @@ def run_serve_paths(args, workdir: str) -> dict:
 MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 512, 2
 # host expert-page budget: one layer's 128 experts x 3 tensors
 MOE_PAGE_SLOTS = 384
-MOE_DECODE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 16
+MOE_DECODE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 8
 
 
 def _moe_config(n_layers: int):
@@ -2118,18 +2143,14 @@ def run_mla_decode(args, device: str = "cuda") -> dict:
 
 # -- phase 12: offloaded MLA uncached decode with expert paging ----------------
 
-MLA_U_PROMPT, MLA_U_NEW = 32, 4
+MLA_U_PROMPT, MLA_U_NEW = 32, 2
 # host expert-page budget: one layer's 256 experts x 3 tensors (22.5 GB of
 # bf16 pages), so neither arm refills a page within a pass
 MLA_PAGE_SLOTS = 768
 
 
 def _mem_total() -> int:
-    with open("/proc/meminfo") as f:
-        for line in f:
-            if line.startswith("MemTotal:"):
-                return int(line.split()[1]) * 1024
-    return 0
+    return _kib_fields("/proc/meminfo", ("MemTotal",)).get("MemTotal", 0)
 
 
 def _max_rss() -> int:
@@ -2551,6 +2572,321 @@ def run_family(name: str, args, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 18: the paper's comparison ----------------------------------------
+
+# arm -> (preset, overlap): the paper's two systems, its bf16-state mode
+# and the overlap ablation (benchmarks/bench_e2e_throughput.py's five runs)
+COMPARE_ARMS = {"memascend": ("memascend", "full"),
+                "zero-infinity": ("zero-infinity", "full"),
+                "memascend-bf16": ("memascend-bf16", "full"),
+                "sync": ("memascend", "sync"),
+                "h2d": ("memascend", "h2d")}
+# the arms whose losses must be bit-equal at both steps: the same fp32
+# Adam on the same gradients, whatever the allocator, pool, store, screen
+# or thread that moves them
+FP32_ARMS = ("memascend", "zero-infinity", "sync", "h2d")
+COMPARE_LR = 1e-3       # the reference bench's Adam lr
+# the zero-infinity screen's chained temporaries: abs(G) plus one bool mask
+CHAINED_TMP_RATIO = 1.25
+COMPARE_METRICS = ("fetch_wait_s", "ssd_wait_s", "optim_gate_s",
+                   "optim_prefetch_wait_s", "overflow_screen_s")
+
+
+def _kib_fields(path: str, names: tuple[str, ...]) -> dict:
+    """``name -> bytes`` of the ``kB`` fields ``names`` of a /proc file."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key in names:
+                out[key] = int(rest.split()[0]) * 1024
+    return out
+
+
+def _proc_status() -> dict:
+    """This process's resident bytes: ``VmRSS`` (and ``VmHWM`` and the
+    Rss split where the kernel reports them) from /proc/self/status."""
+    return _kib_fields("/proc/self/status", ("VmHWM", "VmRSS", "RssAnon",
+                                             "RssFile", "RssShmem"))
+
+
+class _RssPeak:
+    """The most ``VmRSS`` read while the block runs, sampled every 50 ms
+    on a thread of its own: the card machine's /proc/self/status has no
+    ``VmHWM``, and getrusage's ``ru_maxrss`` of a spawned child starts at
+    its parent's resident size."""
+
+    def __enter__(self) -> "_RssPeak":
+        self.peak = _proc_status()["VmRSS"]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, _proc_status()["VmRSS"])
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _proc_status()["VmRSS"])
+
+
+def _meminfo() -> dict:
+    return _kib_fields("/proc/meminfo", ("Cached", "MemAvailable"))
+
+
+def _cuda_child(device: str) -> None:
+    """A comparison child starts here: the card, and the kernels the
+    parent built (a child never compiles, and never falls back)."""
+    if torch.device(device).type != "cuda":
+        return
+    if not torch.cuda.is_available():
+        raise RuntimeError("the comparison phase runs on the card: this "
+                           "process sees no CUDA device")
+    missing = [n for n in _build.sources() if not _build.built(n)]
+    if missing:
+        raise RuntimeError(f"no build of {missing} under "
+                           f"{_build.BUILD_DIR}: the parent builds every "
+                           f"kernel before it starts a comparison child")
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+
+
+def compare_base(device: str = "cuda") -> dict:
+    """The OS counters of a child that only initialises CUDA: the base
+    every arm's counters are read above."""
+    _cuda_child(device)
+    return {**_proc_status(), **_meminfo()}
+
+
+def _compare_policy(preset: str, overlap: str, root: str, n_params: int):
+    """The preset at its defaults plus the bench's lr and ``overlap``, on
+    its own store: zero-infinity's per-tensor files under ``root``, the
+    others' raw store sized for master + m + v + compute weights."""
+    builder = (OffloadPolicy.preset(preset).with_adam(lr=COMPARE_LR)
+               .with_overlap(overlap))
+    if preset == "zero-infinity":
+        return builder.with_store(root).build()
+    capacity = -(-(14 * n_params) // 2) + (512 << 20)
+    return builder.with_store(factory=lambda: DirectNVMeEngine(
+        os.path.join(root, "raw_store"), n_devices=2,
+        device_capacity=capacity)).build()
+
+
+def compare_prediction(model, preset: str) -> dict:
+    """The tracker's bytes as the session's census and the allocators'
+    rounding give them in accounting mode (no memory touched): the pinned
+    pool arena and gradient flat buffer, the Adam staging arena, and under
+    the chained screen its abs + mask temporaries; the peak is their sum,
+    the activation checkpoints (freed before the barrier) left out."""
+    policy = OffloadPolicy.preset(preset).with_store("unused").build()
+    tracker = MemoryTracker()
+    alloc = policy.allocator_cls(tracker=tracker, component="pinned")
+    adam = policy.adam
+    pool = policy.pool_cls(model.census(
+        policy.inflight_blocks,
+        bytes_per_elem=adam.compute_np_dtype.itemsize), alloc)
+    sizes = [v.size for u in model.units for v in u.params.values()]
+    flat = alloc.alloc(4 * sum(sizes))
+    pinned = (tracker.live_requested, tracker.live_allocated)
+    pool.close()
+    flat.free()
+    scratch = OffloadedAdam(None, adam, tracker=tracker) \
+        ._scratch_bytes_per_elem()
+    staging = 2 * (3 * max(sizes) * 4 + max(sizes) * scratch)
+    tmp = 0 if policy.fused_overflow else int(CHAINED_TMP_RATIO * flat.size)
+    return {"pinned_requested": pinned[0], "pinned_reserved": pinned[1],
+            "adam_staging": staging, "overflow_tmp": tmp,
+            "peak_allocated": pinned[1] + staging + tmp,
+            "peak_requested": pinned[0] + staging + tmp}
+
+
+def compare_arm(arm: str, layers: int, seed: int, root: str,
+                device: str = "cuda") -> dict:
+    """One arm, in a process of its own: qwen3-4b at full width and
+    ``layers`` depth from the seed, the training phase's batch, two
+    ``train_step``s (step 1 warms up; step 2 timed with ``synchronize``
+    inside the window, so full overlap pays its Adam tail), the overflow
+    kernel's launches counted over each step, the tracker's pinned
+    allocations and the OS counters.  The store is deleted on the way
+    out."""
+    _cuda_child(device)
+    preset, overlap = COMPARE_ARMS[arm]
+    mem0, rss0 = _meminfo(), _proc_status()["VmRSS"]
+    with _RssPeak() as rss:
+        try:
+            out = _compare_steps(arm, layers, seed, root, device)
+            mem1 = _meminfo()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    out.update(_proc_status())
+    out["rss_start"], out["rss_peak"] = rss0, rss.peak
+    out["cached_rise"] = mem1["Cached"] - mem0["Cached"]
+    out["mem_available_fall"] = mem0["MemAvailable"] - mem1["MemAvailable"]
+    return out
+
+
+def _compare_steps(arm: str, layers: int, seed: int, root: str,
+                   device: str) -> dict:
+    preset, overlap = COMPARE_ARMS[arm]
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    model = make_offloadable_lm(cfg, gen, torch.bfloat16, device=device)
+    draw_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, size=(TRAIN_BATCH, TRAIN_SEQ), dtype=np.int64)
+    labels = np.roll(tokens, -1, axis=1)
+    n_params = sum(v.size for u in model.units for v in u.params.values())
+    tracker = MemoryTracker(keep_timeline=True)
+    t0 = time.perf_counter()
+    with OffloadSession(model, _compare_policy(preset, overlap, root,
+                                               n_params),
+                        tracker=tracker) as s:
+        init_s = time.perf_counter() - t0
+        pinned = {"flat": torch.from_numpy(s.flat[:1024]).is_pinned(),
+                  "pool": torch.from_numpy(s.pool.arena[:4096]).is_pinned()}
+        steps, launches, walls, tails = [], [], [], []
+        for _ in range(2):
+            overflow_flag_cuda_.launches = 0
+            t1 = time.perf_counter()
+            steps.append(dict(s.train_step(tokens, labels)))
+            launches.append(overflow_flag_cuda_.launches)
+            t2 = time.perf_counter()
+            s.synchronize()
+            t3 = time.perf_counter()
+            walls.append(t3 - t1)
+            tails.append(t3 - t2)
+        return {
+            "arm": arm, "preset": preset, "overlap": overlap,
+            "layers": layers, "params": n_params,
+            "tensors": sum(len(u.params) for u in model.units),
+            "allocator": type(s.allocator).__name__,
+            "pool": type(s.pool).__name__, "store": type(s.store).__name__,
+            "draw_s": draw_s, "init_s": init_s, "step_s": walls[1],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / walls[1],
+            "adam_tail_s": tails[1], "step1_s": walls[0],
+            **{k: steps[1][k] for k in COMPARE_METRICS},
+            # the step's whole Adam stage: complete after synchronize
+            "optimizer_io_bytes": s.optimizer.last_io_bytes,
+            "losses": [m["loss"] for m in steps],
+            "losses_hex": [float(m["loss"]).hex() for m in steps],
+            "applied": [m["applied"] for m in steps],
+            "overflow_launches": launches,
+            "flat_bytes": s.flat.nbytes, "pinned": pinned,
+            "peak_allocated": tracker.peak_allocated,
+            "peak_requested": tracker.peak_requested,
+            "components": tracker.breakdown(),
+            "predicted": compare_prediction(model, preset),
+            "pinned_allocs": [(e.requested, e.allocated)
+                              for e in tracker.timeline
+                              if e.op == "alloc" and e.component == "pinned"],
+            "store_io": s.store.stats.snapshot()}
+
+
+def check_compare(arms: dict, device: str = "cuda") -> None:
+    """The comparison's checks; each raises."""
+    fp32 = {a: arms[a]["losses_hex"] for a in FP32_ARMS}
+    if len({tuple(v) for v in fp32.values()}) != 1:
+        raise AssertionError(f"fp32 arms' losses differ: {fp32}")
+    mem, bf16, zi = (arms[a] for a in ("memascend", "memascend-bf16",
+                                       "zero-infinity"))
+    if bf16["losses_hex"][0] != mem["losses_hex"][0] or \
+            not np.isfinite(bf16["losses"][1]):
+        raise AssertionError(f"memascend-bf16 losses {bf16['losses']} vs "
+                             f"memascend {mem['losses']}")
+    for name, a in arms.items():
+        want = 0 if a["preset"] == "zero-infinity" else a["tensors"]
+        if a["overflow_launches"] != [want, want]:
+            raise AssertionError(f"{name}: overflow kernel launched "
+                                 f"{a['overflow_launches']} times a step, "
+                                 f"not {want}")
+        if not all(a["applied"]):
+            raise AssertionError(f"{name}: a clean step was skipped")
+        if device == "cuda" and not all(a["pinned"].values()):
+            raise AssertionError(f"{name}: not page-locked: {a['pinned']}")
+        allocs = a["pinned_allocs"]
+        if not allocs:
+            raise AssertionError(f"{name}: no pinned allocation recorded")
+        tmp = a["components"].get("overflow_tmp", {}).get(
+            "peak_allocated", 0)
+        if a["allocator"] == "PowerOfTwoCachingAllocator":
+            bad = [(r, c) for r, c in allocs if c != next_power_of_two(r)]
+            if bad or tmp < CHAINED_TMP_RATIO * a["flat_bytes"]:
+                raise AssertionError(f"{name}: pow2 allocations {bad}, "
+                                     f"overflow_tmp peak {tmp} B")
+        else:
+            bad = [(r, c) for r, c in allocs if not 0 <= c - r < 4096]
+            if bad or tmp != 0:
+                raise AssertionError(f"{name}: 4 KiB allocations {bad}, "
+                                     f"overflow_tmp peak {tmp} B")
+        per = OffloadedAdam.io_bytes_per_param(
+            OffloadPolicy.preset(a["preset"]).with_store("unused").build()
+            .adam, include_grad_offload=False)
+        if a["optimizer_io_bytes"] != per * a["params"]:
+            raise AssertionError(f"{name}: optimizer_io_bytes "
+                                 f"{a['optimizer_io_bytes']}, not {per} B "
+                                 f"x {a['params']} parameters")
+    if not zi["peak_allocated"] > mem["peak_allocated"]:
+        raise AssertionError(f"zero-infinity's tracker peak "
+                             f"{zi['peak_allocated']} B is not above "
+                             f"memascend's {mem['peak_allocated']} B")
+
+
+def run_compare_phase(args, workdir: str, card: str,
+                      device: str = "cuda") -> dict:
+    """Each arm in a spawned process of its own, one after another (its
+    high-water mark and page-locked bytes its own, and torch's caching
+    host allocator unable to carry one arm's blocks into the next), then
+    the checks and one summary line.  Rows also go to
+    ``chiprun_out/compare.json``."""
+    ctx = multiprocessing.get_context("spawn")
+
+    def child(fn, *a):
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=1, mp_context=ctx) as pool:
+            return pool.submit(fn, *a).result()
+
+    print(f"the paper's comparison: qwen3-4b at full width, depth "
+          f"{args.compare_layers} of 36 (--compare-layers), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, two steps an arm, Adam lr "
+          f"{COMPARE_LR:g}; arms {list(COMPARE_ARMS)}")
+    base = child(compare_base, device)
+    print(f"  base (a child that only initialises CUDA): {base}")
+    arms = {}
+    for arm in COMPARE_ARMS:
+        t0 = time.perf_counter()
+        a = child(compare_arm, arm, args.compare_layers, args.seed,
+                  os.path.join(workdir, f"compare_{arm}"), device)
+        a["os_above_base"] = a["rss_peak"] - base["VmRSS"]
+        a["child_s"] = time.perf_counter() - t0
+        arms[arm] = a
+        print(json.dumps({k: v for k, v in a.items()
+                          if k != "pinned_allocs"}, default=str))
+    check_compare(arms, device)
+    mem, zi = arms["memascend"], arms["zero-infinity"]
+    summary = {
+        "peak_reduction_tracker":
+            1.0 - mem["peak_allocated"] / zi["peak_allocated"],
+        "peak_reduction_os": 1.0 - mem["os_above_base"] / zi["os_above_base"],
+        "peak_reduction_mem_available":
+            1.0 - mem["mem_available_fall"] / zi["mem_available_fall"],
+        "tokens_per_s_memascend_over_zero_infinity":
+            mem["tokens_per_s"] / zi["tokens_per_s"],
+        "tokens_per_s_full_over_sync":
+            mem["tokens_per_s"] / arms["sync"]["tokens_per_s"],
+        "bf16_step2_loss": arms["memascend-bf16"]["losses"][1],
+        "fp32_step2_loss": mem["losses"][1], "card": card}
+    print(f"  comparison: {json.dumps(summary)}")
+    out = {"base": base, "arms": arms, "summary": summary}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "compare.json"), "w") as f:
+        json.dump(out, f, indent=2, default=str)
+    return out
+
+
 # -- phase 16: the dry run against the card ---------------------------------
 
 # the dry run's predicted peak of a training step (argument + temp + output
@@ -2669,7 +3005,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=2,
                     help="qwen3-4b depth (the full model has 36)")
-    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--train-layers", type=int, default=3,
                     help="qwen3-4b depth of the training phase")
     ap.add_argument("--serve-layers", type=int, default=1,
@@ -2685,14 +3021,18 @@ def main() -> int:
     ap.add_argument("--jamba-layers", type=int, default=8,
                     help="jamba-v0.1-52b depth, a multiple of its 8-layer "
                          "interleave period (the full model has 32)")
-    ap.add_argument("--xlstm-layers", type=int, default=48,
+    ap.add_argument("--xlstm-layers", type=int, default=16,
                     help="xlstm-1.3b depth, a multiple of 8 (the full "
                          "model has 48)")
+    ap.add_argument("--compare-layers", type=int, default=1,
+                    help="qwen3-4b depth of the paper's comparison (each "
+                         "arm's store holds 14 B a parameter)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.new_tokens < 3 or min(args.layers, args.train_layers,
                                   args.serve_layers, args.moe_train_layers,
-                                  args.moe_layers, args.mla_layers) < 1:
+                                  args.moe_layers, args.mla_layers,
+                                  args.compare_layers) < 1:
         ap.error("needs --new-tokens >= 3 and every --*layers >= 1")
     if min(args.jamba_layers, args.xlstm_layers) < 8 or \
             args.jamba_layers % 8 or args.xlstm_layers % 8:
@@ -2782,6 +3122,11 @@ def main() -> int:
     dry_pool.shutdown()
     phase_s["dry_run_wait"] = time.perf_counter() - t
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_compare_") as workdir:
+        t = time.perf_counter()
+        compare = run_compare_phase(args, workdir, card)
+        phase_s["comparison"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_train_") as workdir:
         t = time.perf_counter()
         train, host_run = run_train_path(args, workdir)
@@ -2855,6 +3200,8 @@ def main() -> int:
             for m, a in moe_train["arms"].items()},
         "resident_launches": resident["overflow_launches"],
         "mesh_launches_per_step": mesh["overflow_launches_per_step"],
+        "compare_launches": {a: r["overflow_launches"]
+                             for a, r in compare["arms"].items()},
         "family_launches": {n: f["train"]["overflow_launches"]
                             for n, f in families.items()}}, {
         "name": "fused_adam", "route": "cuda",

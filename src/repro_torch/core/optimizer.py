@@ -82,6 +82,12 @@ class AdamConfig:
         return self.state_np_dtype.itemsize
 
 
+# elements an Adam chunk: two fp32 scratch chunks plus the chunk's
+# master / m / v / grad stay in L2, so each array is read and written
+# once a step instead of once an operation
+ADAM_CHUNK = 1 << 16
+
+
 def adam_update(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
                 v: np.ndarray, step: int, cfg: AdamConfig) -> None:
     """In-place Adam step on fp32 working copies.
@@ -89,19 +95,45 @@ def adam_update(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
     ``master``, ``m``, ``v`` are fp32 views; callers holding bf16 state
     upcast before and truncate after (exactly the paper's direct-truncation
     scheme).  ``grad`` is fp32 (already unscaled).
+
+    Each element gets the reference's float32 operations in the
+    reference's order (``src/repro/core/optimizer.py``), so the result is
+    the same bits; the arrays are walked in :data:`ADAM_CHUNK`-element
+    chunks through two scratch chunks rather than as whole-array
+    temporaries.
     """
+    if not all(a.flags.c_contiguous for a in (master, m, v)):
+        raise ValueError("adam_update updates master, m and v in place: "
+                         "they must be C-contiguous")
+    master, m, v = master.reshape(-1), m.reshape(-1), v.reshape(-1)
+    grad = np.reshape(grad, -1)
     b1, b2 = cfg.beta1, cfg.beta2
-    m *= b1
-    m += (1.0 - b1) * grad
-    v *= b2
-    v += (1.0 - b2) * np.square(grad)
     bias1 = 1.0 - b1 ** step
     bias2 = 1.0 - b2 ** step
-    denom = np.sqrt(v / bias2) + cfg.eps
-    update = (m / bias1) / denom
-    if cfg.weight_decay:
-        update += cfg.weight_decay * master
-    master -= cfg.lr * update
+    n = master.size
+    t = np.empty(min(ADAM_CHUNK, n), np.float32)
+    u = np.empty_like(t)
+    for lo in range(0, n, ADAM_CHUNK):
+        hi = min(lo + ADAM_CHUNK, n)
+        g, mc, vc, p = grad[lo:hi], m[lo:hi], v[lo:hi], master[lo:hi]
+        tc, uc = t[:hi - lo], u[:hi - lo]
+        mc *= b1
+        np.multiply(g, 1.0 - b1, out=tc)
+        mc += tc
+        vc *= b2
+        np.square(g, out=tc)
+        tc *= 1.0 - b2
+        vc += tc
+        np.divide(vc, bias2, out=tc)       # denom = sqrt(v / bias2) + eps
+        np.sqrt(tc, out=tc)
+        tc += cfg.eps
+        np.divide(mc, bias1, out=uc)       # update = (m / bias1) / denom
+        uc /= tc
+        if cfg.weight_decay:
+            np.multiply(p, cfg.weight_decay, out=tc)
+            uc += tc
+        uc *= cfg.lr
+        p -= uc
 
 
 def _narrow(src: np.ndarray, out: np.ndarray) -> None:

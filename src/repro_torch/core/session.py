@@ -1888,12 +1888,14 @@ class OffloadSession:
         """Unscale one subgroup's gradient out of the flat buffer.
 
         Unscale with the scale the grads were produced under, not the
-        post-update one — on a growth step they differ by 2x.  The multiply
-        also copies out of the flat buffer, whose region is free for the
-        next step's write-back once the unit's readiness future resolves.
+        post-update one — on a growth step they differ by 2x.  At scale 1
+        (x * 1.0 is x) the region itself is returned: Adam consumes it
+        before the unit's readiness future resolves, and only then may
+        the next step's write-back land there.
         """
         off, size, shape = self._flat_offsets[skey]
-        return self.flat[off:off + size].reshape(shape) * inv_scale
+        grad = self.flat[off:off + size].reshape(shape)
+        return grad if inv_scale == 1 else grad * inv_scale
 
     # -- the pipelined Adam stage (full overlap) -----------------------------
 

@@ -82,6 +82,12 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     return reports
 
 
+def built(name: str) -> bool:
+    """Whether ``csrc/{name}.cu``'s current source has a build on disk
+    (a process that must not compile checks this before it loads)."""
+    return _target(name).exists()
+
+
 def report(name: str) -> str:
     """nvcc's ptxas report (registers, spills) of ``csrc/{name}.cu``'s
     current build, saved beside the library when it was built."""

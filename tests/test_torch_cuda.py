@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import (AlignmentFreeAllocator, DecodeSpec,
                               MemoryTracker, OffloadPolicy, OffloadSession,
-                              PowerOfTwoCachingAllocator)
+                              PowerOfTwoCachingAllocator, next_power_of_two)
 from repro_torch.core.model_adapter import make_offloadable_lm
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_adam import fused_adam_cuda, fused_adam_plain
@@ -308,14 +308,15 @@ TRAIN_CFG = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
                         qk_norm=True)
 
 
-def _train(device, root, overlap="full", steps=3, act=None, layers=2):
-    """fp32 train steps of the tiny model under ``memascend`` (its host
+def _train(device, root, overlap="full", steps=3, act=None, layers=2,
+           preset="memascend"):
+    """fp32 train steps of the tiny model under ``preset`` (its host
     tier of activation checkpoints unless ``act`` names tiers, or
     ``"device"`` for ``offload_checkpoints=False``); returns (losses,
     session facts)."""
     cfg = dataclasses.replace(TRAIN_CFG, n_layers=layers)
     model = make_offloadable_lm(cfg, 0, torch.float32, device=device)
-    builder = (OffloadPolicy.preset("memascend").with_store(root)
+    builder = (OffloadPolicy.preset(preset).with_store(root)
                .with_adam(compute_dtype="float32", lr=1e-3)
                .with_overlap(overlap))
     if act == "device":
@@ -324,7 +325,8 @@ def _train(device, root, overlap="full", steps=3, act=None, layers=2):
         builder = builder.with_activations(act)
     tokens = np.random.default_rng(0).integers(0, 256, size=(2, 16))
     labels = np.roll(tokens, -1, axis=1)
-    with OffloadSession(model, builder.build()) as s:
+    tracker = MemoryTracker(keep_timeline=True)
+    with OffloadSession(model, builder.build(), tracker=tracker) as s:
         before = overflow_flag_cuda_.launches
         metrics = []
         for _ in range(steps):
@@ -334,6 +336,12 @@ def _train(device, root, overlap="full", steps=3, act=None, layers=2):
         losses = [m["loss"] for m in metrics]
         facts = {"launches": overflow_flag_cuda_.launches - before,
                  "pinned": torch.from_numpy(s.flat[:16]).is_pinned(),
+                 "pool_pinned": torch.from_numpy(s.pool.arena[:16])
+                 .is_pinned(),
+                 "pinned_allocs": [(e.requested, e.allocated)
+                                   for e in tracker.timeline
+                                   if e.op == "alloc"
+                                   and e.component == "pinned"],
                  "grads": grads,
                  "act_write_failures": sum(m["act_write_failures"]
                                            for m in metrics),
@@ -362,6 +370,25 @@ def test_train_sync_equals_full_on_the_card(cuda, tmp_path):
     assert sync == full
     assert s_facts["eval"] == f_facts["eval"]
     np.testing.assert_array_equal(s_facts["master"], f_facts["master"])
+
+
+def test_zero_infinity_equals_memascend_on_the_card(cuda, tmp_path):
+    """The baseline preset on the card: its losses, eval and a master
+    equal memascend's bit for bit; its pool arena and flat buffer are
+    page-locked blocks of torch's caching host allocator at the pow2 of
+    their requests; it screens on the host, so no overflow kernel
+    launches."""
+    zi, z_facts = _train("cuda", str(tmp_path / "zi"),
+                         preset="zero-infinity")
+    mem, m_facts = _train("cuda", str(tmp_path / "mem"))
+    assert zi == mem
+    assert z_facts["eval"] == m_facts["eval"]
+    np.testing.assert_array_equal(z_facts["master"], m_facts["master"])
+    assert z_facts["pinned"] and z_facts["pool_pinned"]
+    assert len(z_facts["pinned_allocs"]) == 2
+    assert all(c == next_power_of_two(r)
+               for r, c in z_facts["pinned_allocs"])
+    assert z_facts["launches"] == 0 and m_facts["launches"] > 0
 
 
 def test_act_tiers_equal_device_checkpoints_on_the_card(cuda, tmp_path):

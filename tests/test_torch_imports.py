@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the reference package —
+"""The PyTorch port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and none of the port's examples (``examples/torch_*.py``,
+``experiments/torch_summarize.py``) imports JAX, ``ml_dtypes`` or the
+reference package —
 the machine with the card has none of them.  And ``repro_torch.core``
 exports the public names ``repro.core`` does, less those that have no
 counterpart by decision."""
@@ -11,7 +13,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "examples").glob("torch_*.py")) + \
+    [ROOT / "experiments" / "torch_summarize.py"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 

@@ -43,6 +43,7 @@ def test_pow2_rounding_doubles_large_requests(pkg):
                                         component="p")
     buf = a.alloc(int(2.1 * 2**30))     # the paper's 2.1 GiB -> 4 GiB example
     assert buf.capacity == 4 * 2**30
+    assert buf.capacity - buf.size > 1.8 * 2**30
     buf.free()
 
 

@@ -38,11 +38,13 @@ from repro.core import OffloadPolicy as JPolicy, OffloadSession as JSession
 from repro.core.model_adapter import make_offloadable_lm as jax_lm
 from repro.core.nvme import DirectNVMeEngine as JEngine
 from repro.core.optimizer import AdamConfig as JAdam, OffloadedAdam as JOpt
+from repro.core.optimizer import adam_update as j_adam_update
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import OffloadPolicy, OffloadSession
 from repro_torch.core.model_adapter import from_numpy_units
 from repro_torch.core.nvme import DirectNVMeEngine
-from repro_torch.core.optimizer import AdamConfig, OffloadedAdam
+from repro_torch.core.optimizer import (ADAM_CHUNK, AdamConfig,
+                                        OffloadedAdam, adam_update)
 from repro_torch.core import overflow as toverflow
 
 torch.set_num_threads(2)
@@ -186,6 +188,36 @@ def test_overlap_modes_are_bit_identical(batch, tmp_store_root):
             [m["loss"] for m in runs["sync"][0]]
         for key, ref in runs["sync"][1].items():
             np.testing.assert_array_equal(runs[mode][1][key], ref)
+
+
+@pytest.mark.parametrize("n", [1, 1000, ADAM_CHUNK, 2 * ADAM_CHUNK + 77])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
+def test_adam_update_is_the_reference_s_bit_for_bit(n, weight_decay):
+    """The port's chunked ``adam_update`` against the reference's
+    whole-array one: master, m and v the same bits after three steps,
+    on lengths below, at and across the chunk, in 2-D as well."""
+    rng = np.random.default_rng(n)
+    shape = (n,) if n % 2 else (2, n // 2)
+    states = [rng.standard_normal(shape).astype(np.float32),
+              np.abs(rng.standard_normal(shape)).astype(np.float32) * 0.1,
+              np.abs(rng.standard_normal(shape)).astype(np.float32) * 0.01]
+    kw = dict(lr=3e-3, weight_decay=weight_decay)
+    port = [a.copy() for a in states]
+    ref = [a.copy() for a in states]
+    for step in (1, 2, 3):
+        grad = rng.standard_normal(shape).astype(np.float32)
+        adam_update(port[0], grad, port[1], port[2], step, AdamConfig(**kw))
+        j_adam_update(ref[0], grad, ref[1], ref[2], step, JAdam(**kw))
+    for got, want in zip(port, ref, strict=True):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def test_adam_update_refuses_a_strided_state():
+    m = np.zeros((4, 4), np.float32)
+    with pytest.raises(ValueError, match="C-contiguous"):
+        adam_update(np.zeros((4, 4), np.float32).T, np.ones((4, 4),
+                    np.float32), m, m.copy(), 1, AdamConfig())
 
 
 @pytest.mark.parametrize("state", ["float32", "bfloat16"])
