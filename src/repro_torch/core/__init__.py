@@ -9,6 +9,7 @@
 * host Adam              — :mod:`repro_torch.core.optimizer`
 * prefetch swapper       — :mod:`repro_torch.core.swapper`
 * overlap machinery      — :mod:`repro_torch.core.overlap`
+* spans, timed counters  — :mod:`repro_torch.core.trace`
 * schedule IR            — :mod:`repro_torch.core.stream_plan`
 * paged KV cache         — :mod:`repro_torch.core.kv_cache`
 * the offload session    — :mod:`repro_torch.core.session` (train + serve)

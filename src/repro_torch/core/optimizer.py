@@ -51,6 +51,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import trace
 from .dtypes import (BF16_HOST, bf16_to_f32_, cast_host, f32_to_bf16_,
                      host_dtype)
 
@@ -374,6 +375,7 @@ class OffloadedAdam:
         w = n * sd.itemsize
         return [scratch[i * w:(i + 1) * w].view(sd) for i in range(3)]
 
+    @trace.spanned("adam.read")
     def issue_subgroup(self, key: str) -> StagedSubgroup:  # thread: executor, optim-prefetch
         """Acquire a staging buffer and read (master, m, v) into its fp32
         views.  Runs on the state-prefetch thread — reads stay a single
@@ -384,7 +386,8 @@ class OffloadedAdam:
         meta = self.subgroups[key]
         sd = self.cfg.state_np_dtype
         arena = self._ensure_arena()
-        buf = arena.acquire()
+        with trace.span("adam.staging_acquire", key=key):
+            buf = arena.acquire()
         try:
             n = meta.size
             master, m, v, scratch = arena.views(buf, n)
@@ -436,28 +439,29 @@ class OffloadedAdam:
         key, n = staged.key, meta.size
         arena = self._ensure_arena()
         try:
-            if self.write_guard is not None:
-                self.write_guard(key)
-            _master, _m, _v, scratch = arena.views(staged.buf, n)
-            sources = [(self.MASTER, staged.master), (self.M, staged.m),
-                       (self.V, staged.v)]
-            state_off = 0
-            if sd != F32:
-                halves = self._state_scratch(scratch, n)
-                for (_skey, src), half in zip(list(sources), halves,
-                                              strict=True):
-                    _narrow(src, half)  # truncate into the accounted scratch
-                sources = [(skey, half) for (skey, _src), half
-                           in zip(sources, halves, strict=True)]
-                state_off = 3 * n * sd.itemsize
-            if cd == F32:
-                compute_src = staged.master
-            else:
-                compute_src = scratch[state_off:
-                                      state_off + n * cd.itemsize].view(cd)
-                _narrow(staged.master, compute_src)
-            result = (compute_src.reshape(meta.shape).copy()
-                      if return_compute else None)
+            with trace.span("adam.commit_prep", key=key):
+                if self.write_guard is not None:
+                    self.write_guard(key)
+                _master, _m, _v, scratch = arena.views(staged.buf, n)
+                sources = [(self.MASTER, staged.master), (self.M, staged.m),
+                           (self.V, staged.v)]
+                state_off = 0
+                if sd != F32:
+                    halves = self._state_scratch(scratch, n)
+                    for (_skey, src), half in zip(list(sources), halves,
+                                                  strict=True):
+                        _narrow(src, half)  # truncate into the scratch
+                    sources = [(skey, half) for (skey, _src), half
+                               in zip(sources, halves, strict=True)]
+                    state_off = 3 * n * sd.itemsize
+                if cd == F32:
+                    compute_src = staged.master
+                else:
+                    compute_src = scratch[
+                        state_off:state_off + n * cd.itemsize].view(cd)
+                    _narrow(staged.master, compute_src)
+                result = (compute_src.reshape(meta.shape).copy()
+                          if return_compute else None)
         except BaseException:
             arena.release(staged.buf)
             raise
@@ -490,7 +494,7 @@ class OffloadedAdam:
         try:
             pool = self._pool()
             for skey, src in batch:
-                writes.append(pool.submit(self.store.write, key + skey, src))
+                writes.append(pool.submit(self._write_back, key + skey, src))
         except BaseException:
             # submit itself failed (e.g. executor shut down mid-teardown):
             # the buffer must still come back — via the already-submitted
@@ -506,6 +510,11 @@ class OffloadedAdam:
         for fut in writes:
             fut.add_done_callback(_one_landed)
         return done
+
+    def _write_back(self, skey: str, src: np.ndarray) -> None:  # thread: any
+        """One store write of a commit, on the write-back executor."""
+        with trace.span("adam.write", key=skey):
+            self.store.write(skey, src)
 
     def commit_subgroup(self, staged: StagedSubgroup, *,
                         return_compute: bool = False

@@ -253,12 +253,16 @@ class OverlapStats:
     blocking at a KVReadOp for a staged KV window (page refill waits move
     onto the staging worker and into the KV cache's own wait ledger).
 
-    Most fields are mutated by the single executor thread only.  The two
-    worker-side counters — ``optim_prefetch_wait_seconds`` (the optimizer
-    worker blocked on a state-prefetch future inside the Adam stage) and
-    ``overflow_screen_seconds`` (per-region Inf/NaN screens, paid on the
-    gradient-writer thread under full overlap) — are accumulated through
-    :meth:`add_worker_seconds`, which locks.
+    Most fields are written by the single executor thread only.  The
+    worker-side counters are accumulated through :meth:`add_worker_seconds`,
+    which locks: on the optimizer worker, ``adam_stage_seconds`` (its unit
+    tasks whole), ``adam_update_seconds`` (the arithmetic),
+    ``optim_prefetch_wait_seconds`` (blocked on a state-prefetch future)
+    and ``adam_write_wait_seconds`` (blocked on a unit's write-backs); on
+    the gradient writer under full overlap, ``overflow_screen_seconds``
+    (per-region Inf/NaN screens) and ``act_save_seconds``.  The executor's
+    counters that :func:`repro_torch.core.trace.timed` keeps
+    (``fetch_seconds``, ``optim_gate_seconds``) go through the same lock.
     """
 
     fetch_seconds: float = 0.0  # total FetchOp blocking: read wait + H2D,
@@ -288,6 +292,9 @@ class OverlapStats:
     #                              (routed-only vs all-resident ledger);
     #                              accrued via bump() on the staging worker
     optim_prefetch_wait_seconds: float = 0.0  # Adam blocked on staged state
+    adam_stage_seconds: float = 0.0       # the Adam's unit tasks, whole
+    adam_update_seconds: float = 0.0      # adam_update arithmetic
+    adam_write_wait_seconds: float = 0.0  # Adam blocked on its write-backs
     overflow_screen_seconds: float = 0.0      # per-region Inf/NaN screens
     act_save_seconds: float = 0.0  # D2H + store write on the writer thread
     act_write_failures: int = 0    # SSD act writes that fell back to host
@@ -311,6 +318,9 @@ class OverlapStats:
         with self._lock:
             worker = {
                 "optim_prefetch_wait_seconds": self.optim_prefetch_wait_seconds,
+                "adam_stage_seconds": self.adam_stage_seconds,
+                "adam_update_seconds": self.adam_update_seconds,
+                "adam_write_wait_seconds": self.adam_write_wait_seconds,
                 "overflow_screen_seconds": self.overflow_screen_seconds,
                 "act_save_seconds": self.act_save_seconds,
                 "act_write_failures": self.act_write_failures}

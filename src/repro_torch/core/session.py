@@ -105,6 +105,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import split_positions
+from . import trace
 from .buffer_pool import KV_CLASS
 from .dtypes import cast_host, to_host, to_torch, torch_dtype
 from .kv_cache import DecodeSpec, SpillableKVCache
@@ -123,6 +124,17 @@ from .stream_plan import (PLAN_COMPILERS, ActFetchOp, ActSaveOp, ComputeOp,
 from .swapper import ParameterSwapper
 
 COMPUTE_SUFFIX = OffloadedAdam.COMPUTE   # store key suffix of compute weights
+
+# the span each plan op runs in (repro_torch.core.trace)
+_PLAN_SPANS = {FetchOp: "plan.fetch", ComputeOp: "plan.compute",
+               KVReadOp: "plan.kv_read", KVWriteOp: "plan.kv_write",
+               ActSaveOp: "plan.act_save", ActFetchOp: "plan.act_fetch",
+               ExpertFetchOp: "plan.expert_fetch",
+               ExpertReleaseOp: "plan.expert_release",
+               GradWriteOp: "plan.grad_write",
+               OverflowCheckOp: "plan.overflow_check",
+               OptimStepOp: "plan.optim_step", ReleaseOp: "plan.release"}
+
 
 
 def verify_bucket(n: int) -> int:
@@ -174,7 +186,7 @@ class _ActCkpt:
 class _ExecState:
     """Per-plan-run bindings and carried activations/cotangents."""
 
-    __slots__ = ("tokens", "labels", "scale", "h", "dh",
+    __slots__ = ("step", "tokens", "labels", "scale", "h", "dh",
                  "loss", "logits", "live", "live_slots", "h2d", "grads",
                  "checkpoints", "overflowed", "apply", "optim_begun",
                  "kv", "kv_live", "kv_append", "kv_stage", "kv_slots",
@@ -186,6 +198,7 @@ class _ExecState:
 
     def __init__(self, tokens: torch.Tensor,
                  labels: torch.Tensor | None = None, scale: float = 1.0):
+        self.step = 0                    # the session's plan run (span ids)
         self.tokens = tokens
         self.labels = labels
         self.scale = float(scale)        # loss scale of this run's grads
@@ -250,6 +263,7 @@ class OffloadSession:
         self.mode = mode
         self.device = torch.device(model.device)
         self.tracker = tracker or MemoryTracker()
+        self._runs = 0          # plans executed: the spans' step ids
         self.store = policy.store_factory()
         # The store is open from here on: if any later construction step
         # fails (disk-full while seeding optimizer state, MemoryError on
@@ -546,6 +560,7 @@ class OffloadSession:
         if failure is not None:
             raise failure
 
+    @trace.spanned("synchronize")
     def synchronize(self) -> None:  # thread: executor
         """Drain the cross-step pipeline — queued gradient write-backs and
         the in-flight optimizer stage, re-raising their failures — and
@@ -648,6 +663,7 @@ class OffloadSession:
                    for _key, skey, _cd, _shape in
                    self._param_keys(unit_name))
 
+    @trace.spanned("h2d.copy")
     def _h2d_copy(self, host_view: np.ndarray,  # thread: executor, h2d-worker
                   dtype: torch.dtype | None = None) -> torch.Tensor:
         """Device copy of a host view (a pool slot, a gathered window or an
@@ -666,7 +682,8 @@ class OffloadSession:
             dev = src.to(self.device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._copy_stream)
-        done.synchronize()
+        with trace.span("h2d.copy_wait"):
+            done.synchronize()
         self._compute_stream.wait_event(done)
         dev.record_stream(self._compute_stream)
         return dev
@@ -701,6 +718,7 @@ class OffloadSession:
             self._device_slots.release_all([KV_CLASS])
             raise
 
+    @trace.spanned("h2d.stage")
     def _h2d_stage_unit(self, unit_name: str) -> tuple[dict, list]:  # thread: h2d-worker
         """H2D-worker body: claim the unit's tickets, wait each read,
         stage into device slots, release the pool slots.  Returns
@@ -719,7 +737,8 @@ class OffloadSession:
             for entry in claims:
                 key, skey, ticket, hit, fallback, cd, shape = entry
                 t0 = time.perf_counter()
-                host_view = ticket.wait()
+                with trace.span("swap.wait", key=skey):
+                    host_view = ticket.wait()
                 self.swapper.record_get(
                     hit=hit, fallback=fallback,
                     wait_seconds=time.perf_counter() - t0)
@@ -796,14 +815,14 @@ class OffloadSession:
             fut = self._optim_futures.get(unit_name)
         if fut is None:
             return
-        t0 = time.perf_counter()
         try:
-            fut.result()
+            with trace.timed(self._ostats, "optim_gate_seconds",
+                             "optim_gate", unit=unit_name):
+                fut.result()
         except BaseException as e:
             if self._optim_worker is not None:
                 self._optim_worker.consume_error(e)   # delivered here
             raise
-        self._ostats.optim_gate_seconds += time.perf_counter() - t0
 
     # -- activation-checkpoint streaming -------------------------------------
     #
@@ -1308,6 +1327,8 @@ class OffloadSession:
         """Walk the plan with lookahead-N prefetch; drain on any error."""
         if self._closed:
             raise RuntimeError("session is closed")
+        state.step = self._runs
+        self._runs += 1
         if self.device.type == "cuda":
             with torch.cuda.stream(self._compute_stream):
                 return self._execute(plan, state)
@@ -1331,93 +1352,99 @@ class OffloadSession:
         state.act_next = 0
         try:
             for op in plan.ops:
-                if isinstance(op, FetchOp):
-                    if state.act_order:
-                        # checkpoint fetches ride the same window — issued
-                        # BEFORE this dispatch's weight stages so they are
-                        # not queued behind a weight stage that is parked
-                        # on a device slot the backward has yet to release
-                        self._act_issue_ahead(state)
-                    limit = min(fetch_pos + self.lookahead, len(fetch_order))
-                    while next_prefetch < limit:
-                        unit = fetch_order[next_prefetch]
-                        head = next_prefetch == fetch_pos
-                        # Cross-step gate: the unit's previous-step Adam
-                        # write-back must land before its weights are
-                        # re-read from the store.  Ahead-of-need positions
-                        # stall the window; the head position waits, which
-                        # is also where a failed Adam stage is delivered.
-                        if head:
-                            self._optim_wait(unit)
-                        elif not self._optim_ready(unit):
-                            break
-                        # prefetch() is idempotent per key: a unit still in
-                        # flight from an earlier position would alias onto
-                        # its ticket, so stall the window until it is
-                        # consumed (the head position always proceeds)
-                        if not head and self._unit_in_flight(unit):
-                            break
-                        self._prefetch_unit(unit)
-                        if self._h2d is not None:
-                            self._submit_h2d(unit, state)
-                        if unit in kv_read_units:
-                            # ride the same window: block i+1's KV page
-                            # refills + window gather/H2D overlap block
-                            # i's compute
-                            state.kv.prefetch_window(unit, state.kv_time)
-                            if self._h2d is not None and \
-                                    unit not in state.kv_stage:
-                                self._submit_kv_stage(unit, state)
-                        if unit in expert_units and self._h2d is not None \
-                                and state.expert_slots_out < 2:
-                            # prestage the predicted routed set behind the
-                            # unit's weight/KV stages; skipped when the
-                            # prediction is unknown (first step) or the
-                            # EXPERT slot budget is out — the ExpertFetchOp
-                            # then stages on demand
-                            pred = self._expert_predict(unit, state)
-                            if pred is not None and len(pred):
-                                self._submit_expert_stage(unit, pred, state)
-                        next_prefetch += 1
-                    t_fetch = time.perf_counter()
-                    state.live[op.unit] = self._fetch_unit(op.unit, state)
-                    self._ostats.fetch_seconds += \
-                        time.perf_counter() - t_fetch
-                    fetch_pos += 1
-                elif isinstance(op, ComputeOp):
-                    self._compute(op, state)
-                elif isinstance(op, KVReadOp):
-                    self._read_kv(op.unit, state)
-                elif isinstance(op, KVWriteOp):
-                    self._write_kv(op, state)
-                elif isinstance(op, ActSaveOp):
-                    self._exec_act_save(op, state)
-                elif isinstance(op, ActFetchOp):
-                    self._act_fetch(op, state)
-                elif isinstance(op, ExpertFetchOp):
-                    self._expert_fetch(op, state)
-                elif isinstance(op, ExpertReleaseOp):
-                    self._expert_release(op, state)
-                elif isinstance(op, GradWriteOp):
-                    self._dispatch_grad_write(op.unit, state)
-                elif isinstance(op, OverflowCheckOp):
-                    self._exec_overflow(op, state)
-                elif isinstance(op, OptimStepOp):
-                    self._exec_optim(op.unit, state)
-                elif isinstance(op, ReleaseOp):
-                    state.live.pop(op.unit, None)
-                    tokens = state.live_slots.pop(op.unit, None)
-                    if tokens:
-                        self._device_slots.release_all(tokens)
-                    kv_tokens = state.kv_slots.pop(op.unit, None)
-                    if kv_tokens:
-                        self._device_slots.release_all(kv_tokens)
-                    if state.act_order:
-                        # a block_bwd just gave an ACT slot back — top the
-                        # issue window up ahead of the next weight stages
-                        self._act_issue_ahead(state)
-                else:   # validated at plan build; defensive
+                name = _PLAN_SPANS.get(type(op))
+                if name is None:   # validated at plan build; defensive
                     raise ValueError(f"unknown plan op {op!r}")
+                with trace.span(name, step=state.step,
+                                unit=getattr(op, "unit", "")):
+                    if isinstance(op, FetchOp):
+                        if state.act_order:
+                            # checkpoint fetches ride the same window — issued
+                            # BEFORE this dispatch's weight stages so they are
+                            # not queued behind a weight stage that is parked
+                            # on a device slot the backward has yet to release
+                            self._act_issue_ahead(state)
+                        limit = min(fetch_pos + self.lookahead,
+                                    len(fetch_order))
+                        while next_prefetch < limit:
+                            unit = fetch_order[next_prefetch]
+                            head = next_prefetch == fetch_pos
+                            # Cross-step gate: the unit's previous-step Adam
+                            # write-back must land before its weights are
+                            # re-read from the store.  Ahead-of-need positions
+                            # stall the window; the head position waits, which
+                            # is also where a failed Adam stage is delivered.
+                            if head:
+                                self._optim_wait(unit)
+                            elif not self._optim_ready(unit):
+                                break
+                            # prefetch() is idempotent per key: a unit still in
+                            # flight from an earlier position would alias onto
+                            # its ticket, so stall the window until it is
+                            # consumed (the head position always proceeds)
+                            if not head and self._unit_in_flight(unit):
+                                break
+                            self._prefetch_unit(unit)
+                            if self._h2d is not None:
+                                self._submit_h2d(unit, state)
+                            if unit in kv_read_units:
+                                # ride the same window: block i+1's KV page
+                                # refills + window gather/H2D overlap block
+                                # i's compute
+                                state.kv.prefetch_window(unit, state.kv_time)
+                                if self._h2d is not None and \
+                                        unit not in state.kv_stage:
+                                    self._submit_kv_stage(unit, state)
+                            if unit in expert_units and self._h2d is not None \
+                                    and state.expert_slots_out < 2:
+                                # prestage the predicted routed set behind the
+                                # unit's weight/KV stages; skipped when the
+                                # prediction is unknown (first step) or the
+                                # EXPERT slot budget is out — the ExpertFetchOp
+                                # then stages on demand
+                                pred = self._expert_predict(unit, state)
+                                if pred is not None and len(pred):
+                                    self._submit_expert_stage(unit, pred,
+                                                              state)
+                            next_prefetch += 1
+                        with trace.timed(self._ostats, "fetch_seconds",
+                                         "fetch", unit=op.unit,
+                                         step=state.step):
+                            state.live[op.unit] = self._fetch_unit(op.unit,
+                                                                   state)
+                        fetch_pos += 1
+                    elif isinstance(op, ComputeOp):
+                        self._compute(op, state)
+                    elif isinstance(op, KVReadOp):
+                        self._read_kv(op.unit, state)
+                    elif isinstance(op, KVWriteOp):
+                        self._write_kv(op, state)
+                    elif isinstance(op, ActSaveOp):
+                        self._exec_act_save(op, state)
+                    elif isinstance(op, ActFetchOp):
+                        self._act_fetch(op, state)
+                    elif isinstance(op, ExpertFetchOp):
+                        self._expert_fetch(op, state)
+                    elif isinstance(op, ExpertReleaseOp):
+                        self._expert_release(op, state)
+                    elif isinstance(op, GradWriteOp):
+                        self._dispatch_grad_write(op.unit, state)
+                    elif isinstance(op, OverflowCheckOp):
+                        self._exec_overflow(op, state)
+                    elif isinstance(op, OptimStepOp):
+                        self._exec_optim(op.unit, state)
+                    elif isinstance(op, ReleaseOp):
+                        state.live.pop(op.unit, None)
+                        tokens = state.live_slots.pop(op.unit, None)
+                        if tokens:
+                            self._device_slots.release_all(tokens)
+                        kv_tokens = state.kv_slots.pop(op.unit, None)
+                        if kv_tokens:
+                            self._device_slots.release_all(kv_tokens)
+                        if state.act_order:
+                            # a block_bwd just gave an ACT slot back — top the
+                            # issue window up ahead of the next weight stages
+                            self._act_issue_ahead(state)
         except BaseException:
             self._abort_execute(state)
             raise
@@ -1720,6 +1747,12 @@ class OffloadSession:
             raise RuntimeError("serve-mode session has no gradient buffer")
         if gate is not None:
             gate.result()   # step k-1's Adam must consume flat[unit] first
+        self._land_grads(unit_name, staged)
+
+    @trace.spanned("grad_write")
+    def _land_grads(self, unit_name: str, staged: tuple) -> None:  # thread: executor, writer
+        """The write-back proper: screen (fused policies), copy into the
+        flat buffer, read the verdict."""
         grads, ready = staged
         if self.device.type != "cuda":
             if self._screen_regions:
@@ -1758,14 +1791,13 @@ class OffloadSession:
         tensor of the unit ORs its Inf/NaN verdict into the unit's flag
         (the Hopper kernel on the card, its plain version on the CPU), on
         the stream that then copies the tensors out."""
-        t0 = time.perf_counter()
-        i = self._flag_index[unit_name]
-        flag = self._flags[i:i + 1]
-        flag.zero_()
-        for _key, g in grads:
-            ops.overflow_flag_(g, flag)
-        self._ostats.add_worker_seconds("overflow_screen_seconds",
-                                        time.perf_counter() - t0)
+        with trace.timed(self._ostats, "overflow_screen_seconds",
+                         "overflow_screen", unit=unit_name):
+            i = self._flag_index[unit_name]
+            flag = self._flags[i:i + 1]
+            flag.zero_()
+            for _key, g in grads:
+                ops.overflow_flag_(g, flag)
 
     def _read_verdict(self, unit_name: str) -> None:  # thread: executor, writer
         t0 = time.perf_counter()
@@ -1935,31 +1967,40 @@ class OffloadSession:
         if self._adam_poison is not None:
             raise self._adam_poison
         commits: list[Future] = []
+        stats = self._ostats
         try:
-            for g in range(lo, hi):
-                self._adam_ensure_issued(g + 2)
-                idx, staged_fut = self._adam_inflight.popleft()
-                if idx != g:    # defensive; the reset/cleanup paths keep
-                    raise RuntimeError(   # issue order == work order
-                        f"adam pipeline out of order: staged {idx}, "
-                        f"expected {g}")
-                t0 = time.perf_counter()
-                try:
-                    staged = staged_fut.result()
-                finally:
-                    self._ostats.add_worker_seconds(
-                        "optim_prefetch_wait_seconds",
-                        time.perf_counter() - t0)
-                try:
-                    self.optimizer.compute_subgroup(
-                        staged, self._unit_grad(staged.key, inv_scale))
-                except BaseException:
-                    self.optimizer.discard_staged(staged)
-                    raise
-                commits.append(
-                    self.optimizer.commit_subgroup_async(staged))
-            for commit in commits:
-                commit.result()
+            with trace.timed(stats, "adam_stage_seconds", "adam.unit",
+                             unit=unit_name):
+                for g in range(lo, hi):
+                    self._adam_ensure_issued(g + 2)
+                    idx, staged_fut = self._adam_inflight.popleft()
+                    if idx != g:    # defensive; the reset/cleanup paths
+                        raise RuntimeError(  # keep issue order == work order
+                            f"adam pipeline out of order: staged {idx}, "
+                            f"expected {g}")
+                    t0 = time.perf_counter()
+                    try:
+                        with trace.span("adam.read_wait", unit=unit_name):
+                            staged = staged_fut.result()
+                    finally:
+                        stats.add_worker_seconds(
+                            "optim_prefetch_wait_seconds",
+                            time.perf_counter() - t0)
+                    try:
+                        with trace.timed(stats, "adam_update_seconds",
+                                         "adam.update", key=staged.key):
+                            self.optimizer.compute_subgroup(
+                                staged, self._unit_grad(staged.key,
+                                                        inv_scale))
+                    except BaseException:
+                        self.optimizer.discard_staged(staged)
+                        raise
+                    commits.append(
+                        self.optimizer.commit_subgroup_async(staged))
+                with trace.timed(stats, "adam_write_wait_seconds",
+                                 "adam.write_wait", unit=unit_name):
+                    for commit in commits:
+                        commit.result()
         except BaseException as e:
             self._adam_poison = e
             self._adam_abort(commits, resume_at=hi)
@@ -2001,6 +2042,7 @@ class OffloadSession:
 
     # -- training workloads --------------------------------------------------
 
+    @trace.spanned("train_step")
     def train_step(self, tokens: np.ndarray, labels: np.ndarray) -> dict:  # thread: executor
         """One streamed training step; the whole pipeline — forward,
         backward, overflow screen, host Adam — executes as the train plan.
@@ -2103,6 +2145,7 @@ class OffloadSession:
                              _ExecState(self._tokens(tokens)))
         return to_host(state.logits)
 
+    @trace.spanned("open_kv_cache")
     def open_kv_cache(self) -> SpillableKVCache:
         """A fresh paged spill-able KV cache drawing from this session's
         pool.  One at a time: the census reserves exactly the spec's
@@ -2129,6 +2172,7 @@ class OffloadSession:
             raise RuntimeError("KV cache is closed")
         return self.decode_spec
 
+    @trace.spanned("prefill")
     def prefill(self, kv: SpillableKVCache, tokens: np.ndarray, *,
                 slots: list[int] | None = None,
                 lengths: list[int] | None = None) -> np.ndarray:
@@ -2189,6 +2233,7 @@ class OffloadSession:
                 kv.set_slot_length(s, n)
         return to_host(state.logits[:, 0])
 
+    @trace.spanned("decode_step")
     def decode_step(self, kv: SpillableKVCache,
                     tokens: np.ndarray) -> np.ndarray:
         """One cached decode step: append ``tokens`` (batch, 1) to the

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import trace
 from .buffer_pool import BufferPoolBase, PoolBuffer
 from .nvme import TensorStore
 
@@ -37,10 +38,15 @@ from .nvme import TensorStore
 class SwapStats:
     """Prefetch-pipeline effectiveness counters (paper Fig. 5/6 overlap).
 
-    ``wait_seconds`` is the time :meth:`ParameterSwapper.get` spent blocked —
-    pool-slot backpressure plus outstanding SSD reads.  With lookahead
-    pipelining most reads complete under compute, so waits shrink,
-    ``prefetch_hits`` approaches ``n_gets``, and ``sync_fallbacks`` stays 0.
+    ``wait_seconds`` is the blocked time of the read waits that
+    :meth:`ParameterSwapper.get` or a claimer (the H2D worker) reports
+    through :meth:`ParameterSwapper.record_get`: outstanding SSD reads, and
+    for a ``get`` that found nothing in flight its fallback issue too.
+    ``acquire_wait_seconds`` is the time every issue spent taking a pool
+    slot (:meth:`ParameterSwapper.prefetch`'s backpressure), whichever
+    thread issued.  With lookahead pipelining most reads complete under
+    compute, so waits shrink, ``prefetch_hits`` approaches ``n_gets``, and
+    ``sync_fallbacks`` stays 0.
     """
 
     n_prefetches: int = 0     # async reads actually issued
@@ -48,12 +54,14 @@ class SwapStats:
     prefetch_hits: int = 0    # read had already completed when get() asked
     sync_fallbacks: int = 0   # get() found nothing in flight: synchronous read
     wait_seconds: float = 0.0
+    acquire_wait_seconds: float = 0.0   # pool-slot backpressure at issue
 
     def snapshot(self) -> dict:
         return {"n_prefetches": self.n_prefetches, "n_gets": self.n_gets,
                 "prefetch_hits": self.prefetch_hits,
                 "sync_fallbacks": self.sync_fallbacks,
-                "wait_seconds": self.wait_seconds}
+                "wait_seconds": self.wait_seconds,
+                "acquire_wait_seconds": self.acquire_wait_seconds}
 
 
 @dataclass
@@ -121,7 +129,9 @@ class ParameterSwapper:
                 return self._inflight[key]
         cls = self._shape_class(key, class_name)
         nbytes = int(np.dtype(dtype).itemsize * np.prod(shape, dtype=np.int64))
-        buf = self.pool.acquire(cls, nbytes, tag=key)  # may block = backpressure
+        with trace.timed(self, "acquire_wait_seconds", "pool_acquire",
+                         key=key):
+            buf = self.pool.acquire(cls, nbytes, tag=key)  # backpressure
         try:
             out = buf.view(dtype, shape)
             with self._lock:
@@ -142,6 +152,12 @@ class ParameterSwapper:
             self._inflight[key] = ticket
             self.stats.n_prefetches += 1
         return ticket
+
+    def add_worker_seconds(self, name: str, dt: float) -> None:  # thread: any
+        """Add ``dt`` to the stats counter ``name`` under the swapper's
+        lock (the counters :func:`~repro_torch.core.trace.timed` keeps)."""
+        with self._lock:
+            setattr(self.stats, name, getattr(self.stats, name) + dt)
 
     def in_flight(self, key: str) -> bool:  # thread: any
         """True if an issued read for ``key`` has not been consumed yet."""

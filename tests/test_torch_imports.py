@@ -56,9 +56,9 @@ def test_no_jax_or_reference_imports(path):
 
 # the jnp overflow screens have no counterpart by decision (ROADMAP.md,
 # Queue 1); the port's host bf16 bridge has none in the reference, which
-# keeps host bf16 as ml_dtypes arrays
+# keeps host bf16 as ml_dtypes arrays, nor have its profiler spans
 NO_COUNTERPART = {"baseline_overflow_check_jnp", "fused_overflow_check_jnp"}
-PORT_ONLY = {"dtypes"}
+PORT_ONLY = {"dtypes", "trace"}
 
 
 def test_core_exports_the_reference_names():
