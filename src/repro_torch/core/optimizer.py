@@ -7,9 +7,12 @@ PCIe.  States live on NVMe and are streamed through host subgroup buffers.
 
 This module provides:
 
-* :func:`adam_update` — the vectorized numpy update (our AVX analogue),
-  with bias correction and decoupled weight decay, dtype-templated like the
-  DeepSpeed C++ backend (fp32 or bf16 optimizer states).
+* :func:`adam_update` — the update with bias correction and decoupled
+  weight decay: a hand-written C++ loop split over the process's CPUs
+  (:mod:`repro_torch.kernels.host_adam`, ``csrc/host_adam.cpp``), as
+  DeepSpeed's C++ backend is, on fp32 working copies of fp32 or bf16
+  optimizer states.  :func:`adam_update_plain` is its plain numpy
+  version, the same bits.
 * :class:`OffloadedAdam` — streams (master, m, v) subgroups from a
   :class:`~repro_torch.core.nvme.TensorStore`, updates on host, writes
   back, and emits new half-precision compute weights.  Counts per-iteration
@@ -51,6 +54,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..kernels.host_adam import host_adam_f32
 from . import trace
 from .dtypes import (BF16_HOST, bf16_to_f32_, cast_host, f32_to_bf16_,
                      host_dtype)
@@ -89,6 +93,14 @@ class AdamConfig:
 ADAM_CHUNK = 1 << 16
 
 
+def _flat_state(master, grad, m, v):
+    if not all(a.flags.c_contiguous for a in (master, m, v)):
+        raise ValueError("adam_update updates master, m and v in place: "
+                         "they must be C-contiguous")
+    return (master.reshape(-1), np.reshape(grad, -1), m.reshape(-1),
+            v.reshape(-1))
+
+
 def adam_update(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
                 v: np.ndarray, step: int, cfg: AdamConfig) -> None:
     """In-place Adam step on fp32 working copies.
@@ -97,17 +109,27 @@ def adam_update(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
     upcast before and truncate after (exactly the paper's direct-truncation
     scheme).  ``grad`` is fp32 (already unscaled).
 
+    Runs :func:`repro_torch.kernels.host_adam.host_adam_f32` on
+    :func:`~repro_torch.kernels.host_adam.threads_for` threads: the bits
+    of :func:`adam_update_plain` and of the reference's ``adam_update``.
+    """
+    master, grad, m, v = _flat_state(master, grad, m, v)
+    host_adam_f32(master, grad, m, v,
+                  step=step, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
+                  weight_decay=cfg.weight_decay, lr=cfg.lr)
+
+
+def adam_update_plain(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
+                      v: np.ndarray, step: int, cfg: AdamConfig) -> None:
+    """:func:`adam_update` in numpy, on one thread.
+
     Each element gets the reference's float32 operations in the
     reference's order (``src/repro/core/optimizer.py``), so the result is
     the same bits; the arrays are walked in :data:`ADAM_CHUNK`-element
     chunks through two scratch chunks rather than as whole-array
     temporaries.
     """
-    if not all(a.flags.c_contiguous for a in (master, m, v)):
-        raise ValueError("adam_update updates master, m and v in place: "
-                         "they must be C-contiguous")
-    master, m, v = master.reshape(-1), m.reshape(-1), v.reshape(-1)
-    grad = np.reshape(grad, -1)
+    master, grad, m, v = _flat_state(master, grad, m, v)
     b1, b2 = cfg.beta1, cfg.beta2
     bias1 = 1.0 - b1 ** step
     bias2 = 1.0 - b2 ** step

@@ -258,7 +258,10 @@ class OverlapStats:
     which locks: on the optimizer worker, ``adam_stage_seconds`` (its unit
     tasks whole), ``adam_update_seconds`` (the arithmetic),
     ``optim_prefetch_wait_seconds`` (blocked on a state-prefetch future)
-    and ``adam_write_wait_seconds`` (blocked on a unit's write-backs); on
+    and ``adam_write_wait_seconds`` (blocked on a unit's write-backs), and
+    through :meth:`bump` ``adam_update_elems`` (elements updated) and
+    ``adam_update_split_elems`` (those of them in an update split over
+    threads, :func:`repro_torch.kernels.host_adam.threads_for`); on
     the gradient writer under full overlap, ``overflow_screen_seconds``
     (per-region Inf/NaN screens) and ``act_save_seconds``.  The executor's
     counters that :func:`repro_torch.core.trace.timed` keeps
@@ -295,6 +298,8 @@ class OverlapStats:
     adam_stage_seconds: float = 0.0       # the Adam's unit tasks, whole
     adam_update_seconds: float = 0.0      # adam_update arithmetic
     adam_write_wait_seconds: float = 0.0  # Adam blocked on its write-backs
+    adam_update_elems: int = 0        # elements through adam_update
+    adam_update_split_elems: int = 0  # ... in an update split over threads
     overflow_screen_seconds: float = 0.0      # per-region Inf/NaN screens
     act_save_seconds: float = 0.0  # D2H + store write on the writer thread
     act_write_failures: int = 0    # SSD act writes that fell back to host
@@ -321,6 +326,8 @@ class OverlapStats:
                 "adam_stage_seconds": self.adam_stage_seconds,
                 "adam_update_seconds": self.adam_update_seconds,
                 "adam_write_wait_seconds": self.adam_write_wait_seconds,
+                "adam_update_elems": self.adam_update_elems,
+                "adam_update_split_elems": self.adam_update_split_elems,
                 "overflow_screen_seconds": self.overflow_screen_seconds,
                 "act_save_seconds": self.act_save_seconds,
                 "act_write_failures": self.act_write_failures}

@@ -104,6 +104,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.host_adam import threads_for
 from repro_torch.models.layers import split_positions
 from . import trace
 from .buffer_pool import KV_CLASS
@@ -1909,12 +1910,23 @@ class OffloadSession:
             skey = f"{unit_name}/{key}"
             staged = self.optimizer.issue_subgroup(skey)
             try:
-                self.optimizer.compute_subgroup(
-                    staged, self._unit_grad(skey, inv_scale))
+                self._adam_compute(staged, inv_scale)
             except BaseException:
                 self.optimizer.discard_staged(staged)
                 raise
             self.optimizer.commit_subgroup(staged)
+
+    def _adam_compute(self, staged, inv_scale: np.float32) -> None:  # thread: executor, optim-worker
+        """``compute_subgroup`` on one staged subgroup, its elements
+        counted in ``adam_update_elems``, and in ``adam_update_split_elems``
+        too where :func:`~repro_torch.kernels.host_adam.threads_for` splits
+        the update over threads."""
+        self.optimizer.compute_subgroup(
+            staged, self._unit_grad(staged.key, inv_scale))
+        n = staged.master.size
+        self._ostats.bump("adam_update_elems", n)
+        if threads_for(n) > 1:
+            self._ostats.bump("adam_update_split_elems", n)
 
     def _unit_grad(self, skey: str, inv_scale: np.float32) -> np.ndarray:  # thread: executor, optim-worker
         """Unscale one subgroup's gradient out of the flat buffer.
@@ -1989,9 +2001,7 @@ class OffloadSession:
                     try:
                         with trace.timed(stats, "adam_update_seconds",
                                          "adam.update", key=staged.key):
-                            self.optimizer.compute_subgroup(
-                                staged, self._unit_grad(staged.key,
-                                                        inv_scale))
+                            self._adam_compute(staged, inv_scale)
                     except BaseException:
                         self.optimizer.discard_staged(staged)
                         raise

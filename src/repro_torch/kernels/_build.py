@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's kernel sources and load them with ctypes.
 
 Every ``csrc/*.cu`` file becomes one shared library with a plain C
 interface (no PyTorch headers, so each compiles in seconds), built for
@@ -6,7 +6,10 @@ interface (no PyTorch headers, so each compiles in seconds), built for
 and named by a hash of its source, so an edited source rebuilds and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source
 at once; :func:`library` builds on first use; :func:`report` returns the
-ptxas report kept beside each build.  Nothing here runs at import.
+ptxas report kept beside each build.  Every ``csrc/*.cpp`` file is host
+code: :func:`host_library` builds it with the host C++ compiler (``g++``,
+the one nvcc drives) on first use, into the same directory, named by a
+hash of its source and flags.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# -ffp-contract=off and no -ffast-math: the host kernels keep numpy's
+# float32 operations one rounding each (csrc/host_adam.cpp)
+HOST_CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread",
+                  "-ffp-contract=off", "-fno-math-errno")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}     # guarded-by: _lock
@@ -42,6 +50,14 @@ def _nvcc() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                        "machine with the CUDA toolkit")
+
+
+def _host_cxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host kernels (csrc/*.cpp) build "
+                       "with the host C++ compiler")
 
 
 def _target(name: str) -> Path:
@@ -102,5 +118,42 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
+
+
+def _host_target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(HOST_CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _build_host(name: str) -> Path:
+    """Compile ``csrc/{name}.cpp`` unless its build is on disk: to a name
+    of this process's own, then renamed into place, so processes that
+    build at once never load a half-written library."""
+    target = _host_target(name)
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_host_cxx(), *HOST_CXX_FLAGS, "-o", str(tmp),
+         str(CSRC / f"{name}.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of the host source ``csrc/{name}.cpp``,
+    built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_build_host(name)))
             _libs[name] = lib
         return lib

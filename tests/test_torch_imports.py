@@ -43,7 +43,7 @@ def test_port_has_modules():
     "launch/train.py", "models/mamba.py", "models/xlstm.py",
     "models/whisper.py", "launch/dryrun.py", "launch/roofline.py",
     "kernels/ref.py", "core/lock_witness.py", "launch/mesh.py",
-    "launch/sharding.py", "models/dist.py"])
+    "launch/sharding.py", "models/dist.py", "kernels/host_adam.py"])
 def test_training_slice_modules_are_scanned(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
