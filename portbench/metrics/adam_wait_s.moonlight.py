@@ -1,0 +1,9 @@
+"""``adam_wait_s``, read the same way in the Moonlight cell, whose rate is
+kept per layer (``train_tokens_per_s.moonlight``)."""
+
+from pathlib import Path
+
+from bench import load_module
+
+read = load_module(Path(__file__).with_name("adam_wait_s.py"),
+                   "portbench_metric_adam_wait_s").read

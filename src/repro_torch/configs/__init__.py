@@ -1,4 +1,5 @@
-"""Architecture registry: the 10 assigned configs + the paper's own models.
+"""Architecture registry: the 10 assigned configs + the paper's own models,
+and the port's own (:data:`PORT_MODELS`, which the JAX package has not).
 
 ``get_config("gemma-7b")`` accepts dashed ids (the ``--arch`` flag form).
 """
@@ -16,6 +17,7 @@ from .paligemma_3b import CONFIG as _paligemma_3b
 from .xlstm_1_3b import CONFIG as _xlstm_13b
 from .qwen3_4b import CONFIG as _qwen3_4b
 from .deepseek_v3_671b import CONFIG as _deepseek_v3
+from .moonlight_16b_a3b import CONFIG as _moonlight
 from .paper_models import PAPER_MODELS
 
 ARCHS: dict[str, ModelConfig] = {
@@ -27,19 +29,25 @@ ARCHS: dict[str, ModelConfig] = {
 
 ALL_MODELS: dict[str, ModelConfig] = {**ARCHS, **PAPER_MODELS}
 
+# configurations only the port runs: kept out of the registries that
+# tests hold against the JAX package
+PORT_MODELS: dict[str, ModelConfig] = {_moonlight.name: _moonlight}
+
 
 def get_config(name: str) -> ModelConfig:
+    known = {**ALL_MODELS, **PORT_MODELS}
     key = name.strip()
-    if key in ALL_MODELS:
-        return ALL_MODELS[key]
+    if key in known:
+        return known[key]
     # tolerate underscore/dash variants
     norm = key.replace("_", "-").lower()
-    for k, v in ALL_MODELS.items():
+    for k, v in known.items():
         if k.lower() == norm:
             return v
-    raise KeyError(f"unknown arch {name!r}; known: {sorted(ALL_MODELS)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(known)}")
 
 
-__all__ = ["ARCHS", "ALL_MODELS", "PAPER_MODELS", "INPUT_SHAPES",
+__all__ = ["ARCHS", "ALL_MODELS", "PAPER_MODELS", "PORT_MODELS",
+           "INPUT_SHAPES",
            "InputShape", "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig",
            "get_config"]

@@ -33,6 +33,19 @@ class MoEConfig:
     n_shared: int = 0            # shared (always-on) experts, DeepSeek-style
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # "softmax": softmax-then-top-k with a load-balance loss; "sigmoid":
+    # DeepSeek-V3's noaux_tc gate (fp32 logits, sigmoid scores, top-k of
+    # scores + a per-expert selection bias that only picks, the unbiased
+    # scores of the chosen k renormalised, no auxiliary loss)
+    scoring: str = "softmax"
+    routed_scale: float = 1.0    # routed weights' factor (sigmoid gate)
+
+    def __post_init__(self):
+        if self.scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"MoE scoring must be 'softmax'|'sigmoid', got "
+                             f"{self.scoring!r}")
+        if self.scoring == "softmax" and self.routed_scale != 1.0:
+            raise ValueError("routed_scale belongs to the sigmoid gate")
 
 
 @dataclass(frozen=True)
@@ -40,7 +53,7 @@ class MLAConfig:
     """DeepSeek-V3 multi-head latent attention dims [arXiv:2412.19437]."""
 
     kv_lora_rank: int = 512
-    q_lora_rank: int = 1536
+    q_lora_rank: int | None = 1536   # None: one w_q, no query latent
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
@@ -97,6 +110,9 @@ class ModelConfig:
                                  # (jamba: 8 -> layers i%8==0 are attention)
     moe_period: int = 1          # MoE FFN every this many layers (jamba: 2);
                                  # other layers get a dense FFN of d_ff
+    first_dense_layers: int = 0  # leading layers with a dense FFN of d_ff
+                                 # ahead of the MoE period (DeepSeek's
+                                 # first_k_dense_replace)
     mtp: bool = False            # DeepSeek multi-token prediction head
     # enc-dec (audio) / prefix (vlm) frontends — STUBBED per assignment
     encoder_layers: int = 0      # whisper: encoder depth
@@ -110,6 +126,18 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.first_dense_layers and (self.moe is None or not self.d_ff
+                                        or self.first_dense_layers
+                                        >= self.n_layers):
+            raise ValueError(f"{self.name}: first_dense_layers needs a MoE "
+                             f"config, a dense d_ff and a MoE layer after "
+                             f"them")
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i``'s FFN is the MoE (after the leading dense
+        layers, every ``moe_period``-th)."""
+        return self.moe is not None and i >= self.first_dense_layers and \
+            i % self.moe_period == self.moe_period - 1
 
     @property
     def q_dim(self) -> int:
@@ -177,9 +205,13 @@ class ModelConfig:
             if self.mla is not None:
                 m = self.mla
                 qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+                if m.q_lora_rank is None:
+                    shapes["attn.w_q"] = (d, self.n_heads * qk_head)
+                else:
+                    shapes["attn.w_dq"] = (d, m.q_lora_rank)
+                    shapes["attn.w_uq"] = (m.q_lora_rank,
+                                           self.n_heads * qk_head)
                 shapes.update({
-                    "attn.w_dq": (d, m.q_lora_rank),
-                    "attn.w_uq": (m.q_lora_rank, self.n_heads * qk_head),
                     "attn.w_dkv": (d, m.kv_lora_rank + m.qk_rope_head_dim),
                     "attn.w_ukv": (m.kv_lora_rank,
                                    self.n_heads * (m.qk_nope_head_dim
@@ -193,7 +225,7 @@ class ModelConfig:
                     "attn.w_v": (d, self.kv_dim),
                     "attn.w_o": (self.q_dim, d),
                 })
-        if self.moe is not None and layer % self.moe_period == self.moe_period - 1:
+        if self.is_moe_layer(layer):
             e = self.moe
             shapes["moe.w_router"] = (d, e.n_experts)
             for i in range(e.n_experts):
@@ -253,7 +285,8 @@ class ModelConfig:
         period = max(self.attn_period, self.moe_period)
         if self.ssm is not None and self.ssm.kind == "xlstm":
             period = max(period, self.ssm.slstm_every)
-        for layer in set(range(min(self.n_layers, period))):
+        lead = self.first_dense_layers
+        for layer in set(range(min(self.n_layers, lead + period))):
             counts: dict[str, int] = {}
             for pname, shape in self.block_param_shapes(layer).items():
                 cls = self.class_of_param(pname)
@@ -283,7 +316,7 @@ class ModelConfig:
             e = self.moe
             per_expert = (self.d_model * 2 * e.d_ff_expert
                           + e.d_ff_expert * self.d_model)
-            moe_layers = self.n_layers // self.moe_period
+            moe_layers = sum(map(self.is_moe_layer, range(self.n_layers)))
             total += moe_layers * e.top_k * per_expert
         if self.encoder_layers:
             enc_block = (4 * self.d_model * self.q_dim
@@ -314,7 +347,8 @@ class ModelConfig:
             kw["moe"] = replace(self.moe, n_experts=4, top_k=2,
                                 d_ff_expert=128)
         if self.mla:
-            kw["mla"] = MLAConfig(kv_lora_rank=64, q_lora_rank=96,
+            kw["mla"] = MLAConfig(kv_lora_rank=64,
+                                  q_lora_rank=self.mla.q_lora_rank and 96,
                                   qk_nope_head_dim=32, qk_rope_head_dim=16,
                                   v_head_dim=32)
             kw["head_dim"] = 0

@@ -5,12 +5,14 @@ Port of ``src/repro/core/model_adapter.py``.  The session streams
 *unstacked* per-block parameter dicts (one block on the device at a time);
 this adapter builds them and wires the applies the session runs per unit.
 Restriction, as in the reference: the config must be layer-homogeneous
-(period 1).  Every mixer (attention, MLA, Mamba, mLSTM, sLSTM) trains,
-evaluates and runs uncached decode, with a dense or MoE FFN.  The
-cached-decode applies (``block_prefill`` / ``block_step`` /
-``block_verify``, ``kv_shape``) exist for attention mixers only, as in the
-reference: over an MLA latent or a recurrent state a ``DecodeSpec``
-session raises.
+(period 1), but for leading dense layers ahead of a MoE period
+(``first_dense_layers``, which the reference has not): those blocks run
+the dense FFN and stream whole, never paged.  Every mixer (attention,
+MLA, Mamba, mLSTM, sLSTM) trains, evaluates and runs uncached decode,
+with a dense or MoE FFN.  The cached-decode applies (``block_prefill`` /
+``block_step`` / ``block_verify``, ``kv_shape``) exist for attention
+mixers only, as in the reference: over an MLA latent or a recurrent
+state a ``DecodeSpec`` session raises.
 
 Expert paging (``expert_paging="all" | "routed"``) splits each MoE block's
 stacked ``(E, ...)`` expert tensors into per-expert params
@@ -41,11 +43,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import gqa_prefill, gqa_step, gqa_verify
-from repro_torch.models.layers import (cross_entropy, dense, embed_lookup,
+from repro_torch.models.layers import (cross_entropy, embed_lookup,
                                        fan_in_init, lm_logits,
                                        resolve_device, rms_norm,
                                        split_positions, trunc_normal)
-from repro_torch.models.moe import moe_ffn, ordered_top_k
+from repro_torch.models.moe import (_capacity, moe_ffn, route_top_k,
+                                    router_logits)
 from repro_torch.models.transformer import (apply_ffn, apply_layer,
                                             apply_mixer, ffn_kind,
                                             init_layer_params, layer_period,
@@ -55,11 +58,21 @@ from .offload_engine import OffloadableModel, OffloadUnit
 
 
 def _kinds(cfg: ModelConfig) -> tuple[str, str]:
+    """(mixer, ffn) kinds of the period's one layer."""
     if layer_period(cfg) != 1:
         raise ValueError(
             f"{cfg.name}: offloaded models require layer-homogeneous "
             f"configs (period==1); got period={layer_period(cfg)}")
-    return mixer_kind(cfg, 0), ffn_kind(cfg, 0)
+    lead = cfg.first_dense_layers
+    return mixer_kind(cfg, lead), ffn_kind(cfg, lead)
+
+
+def _block_kinds(kinds: tuple[str, str], params) -> tuple[str, str]:
+    """A block's kinds from its parameters: a leading dense block of a
+    MoE config has no router."""
+    if kinds[1] == "moe" and "moe.w_router" not in params:
+        return kinds[0], "dense"
+    return kinds
 
 
 def _expert_names(x: int) -> tuple[str, str, str]:
@@ -130,7 +143,7 @@ def make_offloadable_lm(cfg: ModelConfig, generator_or_seed,
         "embed": host(trunc_normal(gen, (cfg.vocab, cfg.d_model), 0.02))})]
     for i in range(cfg.n_layers):
         params = init_layer_params(gen, cfg, i, place=host)
-        if expert_paging != "off":
+        if expert_paging != "off" and ffn_kind(cfg, i) == "moe":
             params = _split_experts(cfg, params)
         units.append(OffloadUnit(f"block_{i:03d}", "block", params))
     head_params = {"final_norm": host(torch.zeros(cfg.d_model))}
@@ -168,7 +181,10 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                             scale=cfg.embed_scale)
 
     def block_apply(params, h):
-        return apply_layer(cfg, kinds, params, h)[0]
+        return apply_layer(cfg, _block_kinds(kinds, params), params, h)[0]
+
+    def ffn(params, h):
+        return apply_ffn(cfg, _block_kinds(kinds, params)[1], params, h)[0]
 
     def head_logits(params, h):
         h = rms_norm(h, params["final_norm"].to(compute_dtype), cfg.rms_eps)
@@ -180,7 +196,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
     def block_prefill(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
         mix, k, v = gqa_prefill(params, hn, cfg)
-        return apply_ffn(cfg, kinds[1], params, h + mix)[0], k, v
+        return ffn(params, h + mix), k, v
 
     def block_step(params, h, k_cache, v_cache, cache_len, *, chunk=None):
         # ``chunk`` keeps the attention reductions extent-invariant — see
@@ -188,7 +204,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
         mix, k_new, v_new = gqa_step(params, hn, cfg, k_cache, v_cache,
                                      cache_len, chunk=chunk)
-        return apply_ffn(cfg, kinds[1], params, h + mix)[0], k_new, v_new
+        return ffn(params, h + mix), k_new, v_new
 
     def block_verify(params, h, k_cache, v_cache, cache_len, *,
                      chunk=None):
@@ -200,7 +216,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                         for c in cols], dim=1)
         mix, k_new, v_new = gqa_verify(params, hn, cfg, k_cache, v_cache,
                                        cache_len, chunk=chunk)
-        out = [apply_ffn(cfg, kinds[1], params, c + m)[0]
+        out = [ffn(params, c + m)
                for c, m in zip(cols, split_positions(mix), strict=True)]
         return torch.cat(out, dim=1), k_new, v_new
 
@@ -211,13 +227,15 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                    block_verify=block_verify, kv_shape=kv_shape)
     if expert_meta is not None:
         applies.update(_paged_applies(cfg, kinds[0]))
+        applies["expert_capacity"] = lambda t: _capacity(cfg, t)
     if kinds[0] != "attn":
         # cached decode takes attention mixers only, as in the reference
         # (the MLA latent and the recurrent states are the resident
         # model's caches): keep the applies of the train and uncached
         # paths
         applies = {k: v for k, v in applies.items()
-                   if k in ("block_route", "block_moe", "block_moe_bwd")}
+                   if k in ("block_route", "block_moe", "block_moe_bwd",
+                            "expert_capacity")}
     return OffloadableModel(units=own, embed_apply=embed_apply,
                             class_of=ModelConfig.class_of_param, device=dev,
                             block_apply=block_apply, head_loss=head_loss,
@@ -235,13 +253,12 @@ def _paged_applies(cfg: ModelConfig, mk: str) -> dict:
     autograd with the forward's expert indices pinned."""
 
     def route_idx(params, hmid):
-        # the logits moe_ffn recomputes; only the top-k indices go on to
-        # the host's fetch decision
+        # the logits and the router moe_ffn recomputes; only the top-k
+        # indices go on to the host's fetch decision
         hn = rms_norm(hmid, params["norm_ffn"], cfg.rms_eps)
         b, s, d = hn.shape
-        logits = dense(hn.reshape(b * s, d), params["moe.w_router"])
-        return ordered_top_k(torch.softmax(logits.float(), dim=-1),
-                             cfg.moe.top_k)[1]
+        logits = router_logits(hn.reshape(b * s, d), params, cfg)
+        return route_top_k(logits, params, cfg)[1]
 
     def mixer_half(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
@@ -270,8 +287,10 @@ def _paged_applies(cfg: ModelConfig, mk: str) -> dict:
             x = h.detach().requires_grad_()
             out = block_moe(p, *stacks, idx, mixer_half(p, x))
             keys = list(p)
+            # the sigmoid gate's selection bias only picks: a zero grad
             grads = torch.autograd.grad(
-                out, [p[k] for k in keys] + stacks + [x], grad_outputs=dh)
+                out, [p[k] for k in keys] + stacks + [x], grad_outputs=dh,
+                allow_unused=True, materialize_grads=True)
         n = len(keys)
         return (dict(zip(keys, grads[:n], strict=True)), *grads[n:])
 

@@ -113,6 +113,9 @@ class OffloadableModel:
     block_step_route: Callable | None = None
     block_verify_route: Callable | None = None
     expert_meta: dict | None = None
+    # slots an expert keeps for a routing of ``t`` tokens (the rest of its
+    # (token, choice) pairs are dropped): the session's drop counter
+    expert_capacity: Callable[[int], int] | None = None
 
     def expert_params(self, unit_name: str) -> list[str]:
         """Per-expert param names of one paged-MoE unit ([] if dense)."""

@@ -265,7 +265,8 @@ class OverlapStats:
     the gradient writer under full overlap, ``overflow_screen_seconds``
     (per-region Inf/NaN screens) and ``act_save_seconds``.  The executor's
     counters that :func:`repro_torch.core.trace.timed` keeps
-    (``fetch_seconds``, ``optim_gate_seconds``) go through the same lock.
+    (``fetch_seconds``, ``optim_gate_seconds``,
+    ``expert_route_readback_seconds``) go through the same lock.
     """
 
     fetch_seconds: float = 0.0  # total FetchOp blocking: read wait + H2D,
@@ -294,6 +295,11 @@ class OverlapStats:
     expert_fetch_bytes: int = 0  # expert bytes copied into H2D stacks
     #                              (routed-only vs all-resident ledger);
     #                              accrued via bump() on the staging worker
+    expert_route_readback_seconds: float = 0.0  # executor blocked reading
+    #                                             a route stage's expert ids
+    expert_routed_pairs: int = 0   # (token, choice) pairs routed forward
+    expert_dropped_pairs: int = 0  # ... of them past their expert's
+    #                                capacity: sum_e max(0, count_e - C)
     optim_prefetch_wait_seconds: float = 0.0  # Adam blocked on staged state
     adam_stage_seconds: float = 0.0       # the Adam's unit tasks, whole
     adam_update_seconds: float = 0.0      # adam_update arithmetic
@@ -346,4 +352,8 @@ class OverlapStats:
                 "expert_stage_gets": self.expert_stage_gets,
                 "expert_stage_hits": self.expert_stage_hits,
                 "expert_fetch_wait_seconds": self.expert_fetch_wait_seconds,
-                "expert_fetch_bytes": self.expert_fetch_bytes, **worker}
+                "expert_fetch_bytes": self.expert_fetch_bytes,
+                "expert_route_readback_seconds":
+                    self.expert_route_readback_seconds,
+                "expert_routed_pairs": self.expert_routed_pairs,
+                "expert_dropped_pairs": self.expert_dropped_pairs, **worker}

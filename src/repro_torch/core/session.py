@@ -631,8 +631,11 @@ class OffloadSession:
             xx = x.detach().requires_grad_()
             out = self.model.block_apply(p, xx)
             keys = list(p)
+            # a parameter that only picks (the sigmoid gate's selection
+            # bias) gets a zero grad
             grads = torch.autograd.grad(out, [p[k] for k in keys] + [xx],
-                                        grad_outputs=dy)
+                                        grad_outputs=dy, allow_unused=True,
+                                        materialize_grads=True)
         return dict(zip(keys, grads[:-1], strict=True)), grads[-1]
 
     def _embed_bwd(self, params, tokens, dy):
@@ -1311,9 +1314,23 @@ class OffloadSession:
                     state: _ExecState) -> None:
         """Keep a route stage's expert indices: on the device for the
         expert half, and on the host (a readback — the routed set is host
-        control flow) for the fetch decision."""
+        control flow) for the fetch decision; count its (token, choice)
+        pairs and those past their expert's capacity from the host copy."""
         state.expert_idx[unit] = idx
-        state.expert_route[unit] = idx.cpu().numpy().reshape(-1)
+        with trace.timed(self._ostats, "expert_route_readback_seconds",
+                         "expert.route_readback", unit=unit):
+            host = idx.cpu().numpy()
+        state.expert_route[unit] = host.reshape(-1)
+        capacity = self.model.expert_capacity
+        if capacity is None:
+            return
+        n_experts = self._expert_meta[unit]["n_experts"]
+        # a verify window's (B, K, k) ids route each position on its own
+        for ids in (host.swapaxes(0, 1) if host.ndim == 3 else (host,)):
+            counts = np.bincount(ids.reshape(-1), minlength=n_experts)
+            self._ostats.expert_routed_pairs += ids.size
+            self._ostats.expert_dropped_pairs += int(np.maximum(
+                counts - capacity(ids.shape[0]), 0).sum())
 
     def expert_cache_stats(self) -> dict:
         """Expert page cache spill/refill counters (see

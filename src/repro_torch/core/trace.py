@@ -22,7 +22,8 @@ Thread and boundary of each span:
   ``open_kv_cache`` (the session's entry points), ``synchronize``,
   ``plan.<op>`` (one per plan op), ``fetch`` (the blocking half of a
   FetchOp), ``optim_gate`` (the wait for the previous step's Adam of a
-  unit);
+  unit), ``expert.route_readback`` (a MoE route stage's expert ids read
+  back to the host, which decide the expert pages to fetch);
 * any thread: ``pool_acquire`` (a pool slot taken for a store read);
 * optimizer worker: ``adam.unit`` (one unit's Adam task), ``adam.read_wait``
   (blocked on a subgroup's staged state), ``adam.update`` (the
@@ -63,7 +64,7 @@ PLAN_OPS = ("fetch", "compute", "kv_read", "kv_write", "act_save",
 SPANS = (
     "train_step", "prefill", "decode_step", "open_kv_cache", "synchronize",
     *(f"plan.{op}" for op in PLAN_OPS),
-    "fetch", "optim_gate", "pool_acquire",
+    "fetch", "optim_gate", "expert.route_readback", "pool_acquire",
     "adam.unit", "adam.read_wait", "adam.update", "adam.commit_prep",
     "adam.write_wait", "adam.read", "adam.staging_acquire", "adam.write",
     "h2d.stage", "swap.wait", "h2d.copy", "h2d.copy_wait",

@@ -325,14 +325,18 @@ def _attend_step(q, k_new, v_new, k_cache, v_cache, cl_col, cfg, *, chunk,
 # ---------------------------------------------------------------------------
 
 def mla_project_q(params, x, cfg, positions):
-    """Queries through the q latent: (B, S, H, nope + rope), the rope half
-    rotated."""
+    """Queries through the q latent, or through one ``w_q`` where the
+    config has none (``q_lora_rank`` None): (B, S, H, nope + rope), the
+    rope half rotated."""
     m = cfg.mla
-    q_lat = dense(x, params["attn.w_dq"])                    # (B,S,q_rank)
-    if "attn.q_lat_norm" in params:
-        q_lat = rms_norm(q_lat, params["attn.q_lat_norm"], cfg.rms_eps)
-    q = split_heads(dense(q_lat, params["attn.w_uq"]), cfg.n_heads,
-                    m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if m.q_lora_rank is None:
+        q = dense(x, params["attn.w_q"])
+    else:
+        q_lat = dense(x, params["attn.w_dq"])                # (B,S,q_rank)
+        if "attn.q_lat_norm" in params:
+            q_lat = rms_norm(q_lat, params["attn.q_lat_norm"], cfg.rms_eps)
+        q = dense(q_lat, params["attn.w_uq"])
+    q = split_heads(q, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
                              dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)

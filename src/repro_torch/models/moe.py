@@ -1,7 +1,9 @@
 """Mixture-of-Experts FFN with sort-based capacity dispatch, on torch.
 
 Port of ``src/repro/models/moe.py``: softmax-then-top-k routing with the
-Switch-style auxiliary load-balance loss, a sort + scatter dispatch into
+Switch-style auxiliary load-balance loss (or, for ``MoEConfig.scoring ==
+"sigmoid"``, DeepSeek-V3's gate, which the JAX package has not:
+:func:`router_sigmoid`), a sort + scatter dispatch into
 (E, C, D) expert buffers, the gated expert MLPs batched over the expert
 axis, and a weighted combine.  Shared (always-on) experts run densely
 beside the routed path.
@@ -62,6 +64,46 @@ def router_topk(logits: torch.Tensor, top_k: int):
     return w.float(), idx, _aux_loss(probs, idx, top_k)
 
 
+def router_sigmoid(logits: torch.Tensor, bias: torch.Tensor, top_k: int,
+                   scale: float):
+    """DeepSeek-V3's ``noaux_tc`` gate with one group: scores
+    ``sigmoid(logits)`` in fp32, the experts chosen by the top-k of
+    ``scores + bias`` (the bias only picks: no gradient reaches it), the
+    weights the *unbiased* scores at the chosen experts over their sum
+    (+ 1e-20), times ``scale``.
+
+    Returns (weights (T, k) fp32, indices (T, k) int64)."""
+    scores = torch.sigmoid(logits.float())
+    _, idx = ordered_top_k(scores + bias.detach().float(), top_k)
+    return _sigmoid_weights(scores, idx, scale), idx
+
+
+def _sigmoid_weights(scores, idx, scale: float):
+    w = torch.gather(scores, -1, idx)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * scale
+
+
+def router_logits(xf: torch.Tensor, params, cfg) -> torch.Tensor:
+    """The (T, E) router logits of ``moe_ffn``: in the activations' dtype
+    under softmax scoring, in fp32 from fp32 operands under the sigmoid
+    gate (as DeepSeek-V3's gate computes them)."""
+    if cfg.moe.scoring == "sigmoid":
+        return dense(xf.float(), params["moe.w_router"].float())
+    return dense(xf, params["moe.w_router"])
+
+
+def route_top_k(logits: torch.Tensor, params, cfg):
+    """(weights (T, k) fp32, indices (T, k), load-balance loss) of the
+    configured router; the expert-paging route stage picks with this
+    too, so the host's fetch decision is ``moe_ffn``'s choice."""
+    e = cfg.moe
+    if e.scoring == "sigmoid":
+        w, idx = router_sigmoid(logits, params["moe.router_bias"], e.top_k,
+                                e.routed_scale)
+        return w, idx, torch.zeros((), device=logits.device)
+    return router_topk(logits, e.top_k)
+
+
 def _positions_in_expert(flat_experts: torch.Tensor, n_tokens_k: int):
     """Rank of each (token, choice) within its expert, via a stable sort:
     the first-come position among the entries with the same expert id."""
@@ -84,13 +126,18 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(res), b.to(res)).to(a.dtype)
 
 
-def _route(logits, cfg, idx=None):
+def _route(logits, params, cfg, idx=None):
     """Routing from the (T, E) router logits: (weights (T, k) fp32, each
     (token, choice)'s expert (T*k,), its rank within that expert (T*k,),
     the load-balance loss).  ``idx`` pins the choice (:func:`moe_ffn`)."""
     t, k = logits.shape[0], cfg.moe.top_k
     if idx is None:
-        w, idx, aux = router_topk(logits, k)
+        w, idx, aux = route_top_k(logits, params, cfg)
+    elif cfg.moe.scoring == "sigmoid":
+        idx = torch.as_tensor(idx, device=logits.device).reshape(t, k).long()
+        w = _sigmoid_weights(torch.sigmoid(logits.float()), idx,
+                             cfg.moe.routed_scale)
+        aux = torch.zeros((), device=logits.device)
     else:
         idx = torch.as_tensor(idx, device=logits.device).reshape(t, k).long()
         probs = torch.softmax(logits.float(), dim=-1)
@@ -111,15 +158,16 @@ def moe_ffn(params, x, cfg, idx=None):
     """Routed expert FFN (+ shared experts).  x: (B, S, D) -> (B, S, D).
 
     params: moe.w_router (D, E), moe.w_gate / moe.w_up (E, D, F) each,
-    moe.w_down (E, F, D); optionally moe.shared_gate/up/down.  Returns
+    moe.w_down (E, F, D); optionally moe.shared_gate/up/down; the sigmoid
+    gate's moe.router_bias (E,).  Returns
     (out, aux_loss).
 
     ``idx`` ((T, k) or (B, S, k) integers) pins the expert assignment
     instead of recomputing top-k: the expert-paging path passes the
     routing stage's choice, so the host's fetch decision and the expert
     compute agree by construction.  The weights are re-gathered from the
-    softmax at those indices, which equals the top-k values bit for bit
-    when ``idx`` came from the same logits.
+    softmax (or the sigmoid scores) at those indices, which equals the
+    top-k values bit for bit when ``idx`` came from the same logits.
 
     On DTensors the routing runs on every token of the batch on each
     rank and each rank computes its own block of the expert slots
@@ -132,8 +180,8 @@ def moe_ffn(params, x, cfg, idx=None):
     k = e.top_k
     xf = x.reshape(t, d)
 
-    w, flat_e, pos, aux = _route(dense(xf, params["moe.w_router"]), cfg,
-                                 idx)
+    w, flat_e, pos, aux = _route(router_logits(xf, params, cfg), params,
+                                 cfg, idx)
     capacity = _capacity(cfg, t)
     keep = pos < capacity
     # row of each (token, choice) in the flat (E*C, D) buffers; dropped
@@ -198,11 +246,14 @@ def _moe_ffn_meshed(params, x, cfg, idx=None):
     the one-card step computes from the same products."""
     mesh = x.device_mesh
     e = cfg.moe
+    if e.scoring != "softmax":
+        raise NotImplementedError(f"{cfg.name}: the meshed MoE routes by "
+                                  f"softmax only")
     b, s, d = x.shape
     t, k = b * s, e.top_k
     capacity = _capacity(cfg, t)
     w, flat_e, pos, aux = replicated(
-        lambda lg: _route(lg.reshape(t, e.n_experts), cfg, idx),
+        lambda lg: _route(lg.reshape(t, e.n_experts), params, cfg, idx),
         dense(x, params["moe.w_router"]))
 
     stacks = [weight(params[n]) for n in

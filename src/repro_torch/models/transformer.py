@@ -57,16 +57,25 @@ def mixer_kind(cfg: ModelConfig, layer: int) -> str:
 
 
 def ffn_kind(cfg: ModelConfig, layer: int) -> str:
-    if cfg.moe is not None and layer % cfg.moe_period == cfg.moe_period - 1:
+    if cfg.is_moe_layer(layer):
         return "moe"
     return "dense" if cfg.d_ff else "none"
 
 
 def layer_period(cfg: ModelConfig) -> int:
+    """The period of the layers after the leading dense ones."""
     p = math.lcm(cfg.attn_period, cfg.moe_period)
     if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
         p = math.lcm(p, cfg.ssm.slstm_every)
-    return min(p, cfg.n_layers)
+    return min(p, cfg.n_layers - cfg.first_dense_layers)
+
+
+def _period_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """(mixer, ffn) kinds of each position of the period, which starts
+    after the leading dense layers."""
+    lead = cfg.first_dense_layers
+    return [(mixer_kind(cfg, lead + j), ffn_kind(cfg, lead + j))
+            for j in range(layer_period(cfg))]
 
 
 # ---------------------------------------------------------------------------
@@ -93,10 +102,15 @@ def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
     elif mk == "mla":
         m = cfg.mla
         qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+        if m.q_lora_rank is None:
+            specs.append(("attn.w_q", (d, cfg.n_heads * qk_head), fan_in_))
+        else:
+            specs += [
+                ("attn.w_dq", (d, m.q_lora_rank), fan_in_),
+                ("attn.q_lat_norm", (m.q_lora_rank,), zeros_),
+                ("attn.w_uq", (m.q_lora_rank, cfg.n_heads * qk_head),
+                 fan_in_)]
         specs += [
-            ("attn.w_dq", (d, m.q_lora_rank), fan_in_),
-            ("attn.q_lat_norm", (m.q_lora_rank,), zeros_),
-            ("attn.w_uq", (m.q_lora_rank, cfg.n_heads * qk_head), fan_in_),
             ("attn.w_dkv", (d, m.kv_lora_rank + m.qk_rope_head_dim),
              fan_in_),
             ("attn.kv_lat_norm", (m.kv_lora_rank,), zeros_),
@@ -119,8 +133,10 @@ def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
                   ("ffn.w_down", (cfg.d_ff, d), fan_in_)]
     elif fk == "moe":
         e = cfg.moe
-        specs += [("moe.w_router", (d, e.n_experts), fan_in_),
-                  ("moe.w_gate", (e.n_experts, d, e.d_ff_expert), fan_in_),
+        specs.append(("moe.w_router", (d, e.n_experts), fan_in_))
+        if e.scoring == "sigmoid":
+            specs.append(("moe.router_bias", (e.n_experts,), _bias_))
+        specs += [("moe.w_gate", (e.n_experts, d, e.d_ff_expert), fan_in_),
                   ("moe.w_up", (e.n_experts, d, e.d_ff_expert), fan_in_),
                   ("moe.w_down", (e.n_experts, e.d_ff_expert, d), fan_in_)]
         if e.n_shared:
@@ -129,6 +145,13 @@ def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
                       ("moe.shared_up", (d, f), fan_in_),
                       ("moe.shared_down", (f, d), fan_in_)]
     return specs
+
+
+def _bias_(generator: torch.Generator, out):
+    """The sigmoid gate's selection bias: 0.02 x a truncated normal (the
+    embedding's scale), which changes about half of the tokens' choices at
+    64 experts and unit-scale logits."""
+    return trunc_normal_(generator, out, 0.02)
 
 
 def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
@@ -145,17 +168,18 @@ def init_layer_params(generator: torch.Generator, cfg: ModelConfig,
 def init_params(generator_or_seed, cfg: ModelConfig, dtype=torch.float32,
                 *, device="cuda") -> dict:
     """Full parameter tree with period-stacked layer groups: ``embed``,
-    ``final_norm``, ``head`` (untied only), ``groups`` (one dict of
-    ``(G, ...)`` tensors per position of the period) and, for MTP configs,
-    ``mtp`` (one block of layer ``n_layers - 1``'s kinds), ``mtp_norm`` and
-    ``mtp_proj``.  A seed draws from a generator on ``device``; a
+    ``final_norm``, ``head`` (untied only), ``lead`` (one dict per leading
+    dense layer, where the config has them), ``groups`` (one dict of
+    ``(G, ...)`` tensors per position of the period after them) and, for
+    MTP configs, ``mtp`` (one block of layer ``n_layers - 1``'s kinds),
+    ``mtp_norm`` and ``mtp_proj``.  A seed draws from a generator on ``device``; a
     generator draws on its own device.  Each tensor is drawn in place in
     ``dtype``, so the peak is the tree itself."""
     gen = generator_of(generator_or_seed, device)
     dev = gen.device
-    p = layer_period(cfg)
-    n_groups = cfg.n_layers // p
-    assert n_groups * p == cfg.n_layers, \
+    p, lead = layer_period(cfg), cfg.first_dense_layers
+    n_groups = (cfg.n_layers - lead) // p
+    assert n_groups * p == cfg.n_layers - lead, \
         f"{cfg.name}: n_layers={cfg.n_layers} not divisible by period={p}"
 
     def new(shape):
@@ -166,7 +190,10 @@ def init_params(generator_or_seed, cfg: ModelConfig, dtype=torch.float32,
                     "final_norm": new((cfg.d_model,)).zero_()}
     if not cfg.tie_embeddings:
         params["head"] = fan_in_(gen, new((cfg.d_model, cfg.vocab)))
-    params["groups"] = [draw_stacked(gen, layer_param_specs(cfg, j),
+    if lead:
+        params["lead"] = [init_layer_params(gen, cfg, i, dtype)
+                          for i in range(lead)]
+    params["groups"] = [draw_stacked(gen, layer_param_specs(cfg, lead + j),
                                      n_groups, dtype) for j in range(p)]
     if cfg.mtp:
         params["mtp"] = init_layer_params(gen, cfg, cfg.n_layers - 1, dtype)
@@ -187,7 +214,7 @@ def from_numpy_params(cfg: ModelConfig, params_np, dtype=torch.float32,
 
     out = {}
     for key, value in params_np.items():
-        if key == "groups":
+        if key in ("groups", "lead"):
             out[key] = [{k: conv(v) for k, v in g.items()} for g in value]
         elif isinstance(value, dict):
             out[key] = {k: conv(v) for k, v in value.items()}
@@ -274,24 +301,25 @@ def forward(cfg: ModelConfig, params, h, *, prefix_len: int = 0,
     activation sharding after every layer group
     (:func:`repro_torch.train.step.make_act_hint`), as the reference's
     does."""
-    p = layer_period(cfg)
-    kinds = [(mixer_kind(cfg, j), ffn_kind(cfg, j)) for j in range(p)]
-
-    def group_body(h, aux, gparams):
-        for j in range(p):
-            h, a = apply_layer(cfg, kinds[j], gparams[j], h,
-                               prefix_len=prefix_len, causal=causal)
+    def group_body(h, aux, gparams, kinds):
+        for kind, lp in zip(kinds, gparams, strict=True):
+            h, a = apply_layer(cfg, kind, lp, h, prefix_len=prefix_len,
+                               causal=causal)
             aux = aux + a
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for g in range(_n_groups(params)):
-        gparams = [_group(s, g) for s in params["groups"]]
+    # the leading dense layers one at a time, then the period's groups
+    groups = [([(mixer_kind(cfg, i), ffn_kind(cfg, i))], [lp])
+              for i, lp in enumerate(params.get("lead", ()))]
+    groups += [(_period_kinds(cfg), [_group(s, g) for s in params["groups"]])
+               for g in range(_n_groups(params))]
+    for gkinds, gparams in groups:
         if remat and torch.is_grad_enabled():
-            h, aux = checkpoint(group_body, h, aux, gparams,
+            h, aux = checkpoint(group_body, h, aux, gparams, gkinds,
                                 use_reentrant=False)
         else:
-            h, aux = group_body(h, aux, gparams)
+            h, aux = group_body(h, aux, gparams, gkinds)
         if hint is not None:
             h = hint(h)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
@@ -392,10 +420,18 @@ def init_layer_cache(cfg: ModelConfig, layer: int, batch: int,
             "n": torch.ones(shape, **f32)}
 
 
+def _no_lead_decode(cfg: ModelConfig) -> None:
+    if cfg.first_dense_layers:
+        raise NotImplementedError(f"{cfg.name}: the resident decode caches "
+                                  f"the period's layers only, not leading "
+                                  f"dense ones")
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_seq: int,
                dtype=torch.bfloat16, device="cuda") -> tuple:
     """Stacked cache tree mirroring ``params["groups"]``: one dict of
     ``(G, ...)`` tensors per position of the layer period."""
+    _no_lead_decode(cfg)
     p = layer_period(cfg)
     n_groups = cfg.n_layers // p
     caches = []
@@ -430,6 +466,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_len, *,
                 compute_dtype=torch.bfloat16):
     """One decode step: tokens (B, 1) + cache -> (logits (B, 1, V) fp32,
     new cache).  The cache passed in is left as it was."""
+    _no_lead_decode(cfg)
     p = layer_period(cfg)
     kinds = [(mixer_kind(cfg, j), ffn_kind(cfg, j)) for j in range(p)]
     h = embed_tokens(cfg, params, tokens, compute_dtype)
