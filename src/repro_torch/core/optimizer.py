@@ -31,14 +31,18 @@ state I/O the same way):
 
 * :meth:`OffloadedAdam.issue_subgroup`  — acquire one buffer of the
   **double-buffered staging arena** and read (master, m, v) into its fp32
-  views (one read stream, on the state-prefetch thread),
+  views (from the state-prefetch thread, the three reads side by side on
+  the optimizer's read pool),
 * :meth:`OffloadedAdam.compute_subgroup` — :func:`adam_update` in place on
   the staged fp32 state (optimizer thread),
 * :meth:`OffloadedAdam.commit_subgroup_async` — truncate + write back
-  master/m/v and the fresh compute-precision weights on a dedicated
-  single-thread write-back executor (one write stream, draining behind
-  the reads), bump the I/O ledger, release the staging buffer from the
-  last write's completion callback.
+  master/m/v and the fresh compute-precision weights on the optimizer's
+  write-back pool (the four writes side by side), bump the I/O ledger,
+  release the staging buffer from the last write's completion callback.
+
+A subgroup's transfers run side by side because one copy thread moves a
+fraction of the host's memory bandwidth, and copies in flight together
+add up (numpy releases the GIL while it copies).
 
 :meth:`step_subgroup` remains the synchronous composition of the three.
 The arena (2 buffers × (3 × max-subgroup fp32 + a truncation scratch)) is
@@ -48,8 +52,9 @@ accounted scratch region.
 
 from __future__ import annotations
 
+import functools
 import threading
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from dataclasses import dataclass
 
 import numpy as np
@@ -185,12 +190,12 @@ class _StagingArena:
     buffer is recycled once its write-back lands.
 
     :meth:`acquire` blocks until a buffer is free.  Deadlock-freedom:
-    only the state-prefetch worker blocks here, and every held buffer is
-    released from an independent thread — a commit's write-completion
-    callback on the dedicated write-back executor, or the optimizer
-    thread on error paths — never from a task queued behind the blocked
-    acquire.  :meth:`close` wakes blocked waiters, which raise instead of
-    hanging.
+    only the state-prefetch worker blocks here (the read pool's tasks
+    never acquire), and every held buffer is released from an independent
+    thread — a commit's write-completion callback on the optimizer's
+    write-back pool, or the optimizer thread on error paths — never from a
+    task queued behind the blocked acquire.  :meth:`close` wakes blocked
+    waiters, which raise instead of hanging.
     """
 
     def __init__(self, max_elems: int, scratch_bytes: int, tracker,
@@ -267,10 +272,10 @@ class OffloadedAdam:
     description and keeps peak host usage to the staging arena: 2 buffers of
     max-tensor-size × 3 fp32 + truncation scratch).
 
-    Thread contract: the split halves are designed for exactly two extra
-    threads — :meth:`issue_subgroup` and :meth:`commit_subgroup` run on one
-    I/O thread (the session's state-prefetch worker) and
-    :meth:`compute_subgroup` on the optimizer worker, with
+    Thread contract: the split halves are designed for two extra session
+    threads — :meth:`issue_subgroup` runs on one I/O thread (the session's
+    state-prefetch worker) and :meth:`compute_subgroup` and
+    :meth:`commit_subgroup_async` on the optimizer worker, with
     :meth:`begin_step` sequenced before its subgroups on the optimizer
     worker.  One step is in flight at a time.  The I/O ledger
     (``last_io_bytes``) is lock-guarded so the training thread can read a
@@ -282,6 +287,7 @@ class OffloadedAdam:
     """
 
     MASTER, M, V, COMPUTE = ".master", ".m", ".v", ".compute"
+    STATE = (MASTER, M, V)
 
     def __init__(self, store, cfg: AdamConfig, *, tracker=None,
                  component: str = "optimizer_stream") -> None:
@@ -296,16 +302,12 @@ class OffloadedAdam:
         self._io_lock = threading.Lock()
         self._arena_lock = threading.Lock()
         self._arena: _StagingArena | None = None   # guarded-by: _arena_lock
-        # Dedicated single-thread write-back executor.  Two deliberate
-        # choices, both measured at bench scale: (a) NOT the store's
-        # shared "-aio" pool — the next step's small, latency-critical
-        # weight prefetches must never queue behind this stage's large
-        # state transfers; (b) exactly ONE write stream next to the one
-        # read stream (the state-prefetch worker) — the Adam stage keeps
-        # at most two transfers in flight, overlapping its reads with its
-        # write-backs without starving the concurrent forward window's
-        # weight reads of disk bandwidth (wider Adam I/O made the whole
-        # pipeline slower).
+        # The optimizer's own pools, not the store's shared "-aio" pool:
+        # the next step's small, latency-critical weight prefetches must
+        # never queue behind this stage's large state transfers.  Reads:
+        # one worker per state tensor, so an issue's three reads run side
+        # by side.  Writes: one worker per store write of a commit.
+        self._read_io_pool: ThreadPoolExecutor | None = None  # guarded-by: _arena_lock
         self._io_pool: ThreadPoolExecutor | None = None  # guarded-by: _arena_lock
         self._closed = False     # guarded-by: _arena_lock
         # I/O volume of the most recent step
@@ -333,9 +335,9 @@ class OffloadedAdam:
     # -- staging arena -----------------------------------------------------------
 
     def _scratch_bytes_per_elem(self) -> int:
-        # issue/commit fan the three state tensors (plus the compute
-        # weights) out on the store's async pool, so each concurrently
-        # in-flight half-precision tensor needs its own scratch region
+        # an issue's three state reads and a commit's four writes may be
+        # in flight together (on the optimizer's pools), so each
+        # half-precision tensor needs its own scratch region
         sd = self.cfg.state_np_dtype
         cd = self.cfg.compute_np_dtype
         return ((3 * sd.itemsize if sd != F32 else 0)
@@ -362,27 +364,42 @@ class OffloadedAdam:
             arena = self._arena
         return arena is None or arena.idle()
 
-    def _pool(self) -> ThreadPoolExecutor:
+    def _lazy_pool(self, attr: str, workers: int,
+                   prefix: str) -> ThreadPoolExecutor:
         with self._arena_lock:
             if self._closed:
-                # a commit racing close() must fail loudly: recreating the
-                # executor here would resurrect a write stream nobody joins
-                # (close() already shut the old one down and returned)
+                # a transfer racing close() must fail loudly: recreating a
+                # pool here would resurrect threads nobody joins (close()
+                # already shut the old one down and returned)
                 raise RuntimeError("optimizer is closed")
-            if self._io_pool is None:
-                self._io_pool = ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="offload-optim-io")
-            return self._io_pool
+            pool = getattr(self, attr)
+            if pool is None:
+                pool = ThreadPoolExecutor(max_workers=workers,
+                                          thread_name_prefix=prefix)
+                setattr(self, attr, pool)
+            return pool
+
+    def _pool(self) -> ThreadPoolExecutor:
+        """The write-back pool: one worker per store write of a commit."""
+        return self._lazy_pool("_io_pool", len(self.STATE) + 1,
+                               "offload-optim-io")
+
+    def _read_pool(self) -> ThreadPoolExecutor:
+        """The read pool: one worker per state tensor of an issue."""
+        return self._lazy_pool("_read_io_pool", len(self.STATE),
+                               "offload-optim-read")
 
     def close(self) -> None:  # thread: executor
-        """Free the staging arena's tracker charge and stop the I/O pool
-        (waiting out in-flight write-backs).  Idempotent; later streaming
-        calls raise instead of resurrecting the arena."""
+        """Free the staging arena's tracker charge and stop both I/O pools
+        (waiting out in-flight transfers).  Idempotent; later streaming
+        calls raise instead of resurrecting the arena or a pool."""
         with self._arena_lock:
             self._closed = True
-            pool, self._io_pool = self._io_pool, None
-        if pool is not None:
-            pool.shutdown(wait=True)
+            pools = (self._read_io_pool, self._io_pool)
+            self._read_io_pool = self._io_pool = None
+        for pool in pools:
+            if pool is not None:
+                pool.shutdown(wait=True)
         with self._arena_lock:
             arena, self._arena = self._arena, None
         if arena is not None:
@@ -400,11 +417,12 @@ class OffloadedAdam:
     @trace.spanned("adam.read")
     def issue_subgroup(self, key: str) -> StagedSubgroup:  # thread: executor, optim-prefetch
         """Acquire a staging buffer and read (master, m, v) into its fp32
-        views.  Runs on the state-prefetch thread — reads stay a single
-        stream there, overlapping the write-back stream and the optimizer
-        arithmetic without crowding the disk (see ``_io_pool``).  Blocks
-        while both buffers are in use.  On a failed read the buffer is
-        released before re-raising."""
+        views.  Runs on the state-prefetch thread, which alone blocks on
+        the arena (while both buffers are in use); it hands the three reads
+        to the read pool and waits for all of them.  On a failed read the
+        buffer is released — after every read of the subgroup has
+        finished, so none lands in a recycled buffer — before re-raising
+        the first error."""
         meta = self.subgroups[key]
         sd = self.cfg.state_np_dtype
         arena = self._ensure_arena()
@@ -413,22 +431,43 @@ class OffloadedAdam:
         try:
             n = meta.size
             master, m, v, scratch = arena.views(buf, n)
-            targets = [(self.MASTER, master), (self.M, m), (self.V, v)]
-            if sd == F32:
-                for skey, out in targets:
-                    self.store.read(key + skey, out)
-            else:
-                # read at state precision (bf16 bits) into the scratch,
-                # widen in place
-                halves = self._state_scratch(scratch, n)
-                for (skey, out), half in zip(targets, halves, strict=True):
-                    self.store.read(key + skey, half)
-                    bf16_to_f32_(half, out)
+            # bf16 state is read at state precision into the scratch and
+            # widened in place
+            halves = (self._state_scratch(scratch, n) if sd != F32
+                      else [None] * len(self.STATE))
+            reads = [functools.partial(self._read_one, key + skey, out, half)
+                     for skey, out, half in zip(self.STATE, (master, m, v),
+                                                halves, strict=True)]
+            self._read_side_by_side(reads)
             return StagedSubgroup(key, buf, master, m, v,
                                   io_read=3 * n * sd.itemsize)
         except BaseException:
             arena.release(buf)
             raise
+
+    def _read_side_by_side(self, reads) -> None:  # thread: executor, optim-prefetch
+        """Run ``reads`` on the read pool and wait for every one that was
+        submitted, then raise the first error in key order."""
+        futures = []
+        try:
+            pool = self._read_pool()
+            for read in reads:
+                futures.append(pool.submit(read))
+        finally:
+            wait(futures)
+        for fut in futures:
+            fut.result()
+
+    def _read_one(self, skey: str, out: np.ndarray,
+                  half: np.ndarray | None) -> None:  # thread: any
+        """One store read of an issue into its fp32 view, through the
+        state-precision ``half`` when the state is bf16."""
+        with trace.span("adam.store_read", key=skey):
+            if half is None:
+                self.store.read(skey, out)
+            else:
+                self.store.read(skey, half)
+                bf16_to_f32_(half, out)
 
     def compute_subgroup(self, staged: StagedSubgroup,
                          grad_f32: np.ndarray) -> None:  # thread: executor, optim-worker
@@ -442,9 +481,9 @@ class OffloadedAdam:
                               ) -> "Future":  # thread: executor, optim-worker
         """Submit the write-back batch — master/m/v (truncated in the
         accounted scratch when half-precision) plus the fresh compute
-        weights — on the dedicated single-thread write-back executor
-        (``_io_pool``; deliberately not the store's shared pool) and
-        return a Future that resolves once **every** write landed, the
+        weights — on the optimizer's write-back pool (``_io_pool``;
+        deliberately not the store's shared pool), the four side by side,
+        and return a Future that resolves once **every** write landed, the
         I/O ledger was bumped, and the staging buffer was released (all
         from the last write's completion callback).  The buffer is
         released on failure too; the future carries the first write
@@ -534,7 +573,7 @@ class OffloadedAdam:
         return done
 
     def _write_back(self, skey: str, src: np.ndarray) -> None:  # thread: any
-        """One store write of a commit, on the write-back executor."""
+        """One store write of a commit, on the write-back pool."""
         with trace.span("adam.write", key=skey):
             self.store.write(skey, src)
 

@@ -33,7 +33,8 @@ Thread and boundary of each span:
 * state-prefetch worker: ``adam.read`` (a subgroup's master, m and v read
   into the staging arena), inside it ``adam.staging_acquire`` (blocked on
   a free staging buffer);
-* write-back executor: ``adam.write`` (one store write);
+* read pool: ``adam.store_read`` (one store read);
+* write-back pool: ``adam.write`` (one store write);
 * H2D worker: ``h2d.stage`` (one unit staged), ``swap.wait`` (blocked on a
   store read), ``h2d.copy`` (one host-to-device copy, on any thread that
   copies), inside it on the card ``h2d.copy_wait`` (the wait for the
@@ -66,7 +67,8 @@ SPANS = (
     *(f"plan.{op}" for op in PLAN_OPS),
     "fetch", "optim_gate", "expert.route_readback", "pool_acquire",
     "adam.unit", "adam.read_wait", "adam.update", "adam.commit_prep",
-    "adam.write_wait", "adam.read", "adam.staging_acquire", "adam.write",
+    "adam.write_wait", "adam.read", "adam.staging_acquire",
+    "adam.store_read", "adam.write",
     "h2d.stage", "swap.wait", "h2d.copy", "h2d.copy_wait",
     "grad_write", "overflow_screen",
 )

@@ -35,10 +35,13 @@ TRAIN_THREADS = {
     "optimizer": {"adam.unit", "adam.read_wait", "adam.update",
                   "adam.commit_prep", "adam.write_wait"},
     "state prefetch": {"adam.read", "adam.staging_acquire"},
+    "read pool": {"adam.store_read"},
     "write-back": {"adam.write"},
     "h2d": {"h2d.stage", "swap.wait", "h2d.copy"},
     "writer": {"grad_write", "overflow_screen"},
 }
+# roles served by a pool rather than one thread
+POOLED = {"read pool", "write-back"}
 
 
 def _profiler():
@@ -113,12 +116,13 @@ def test_train_step_records_each_span_on_its_own_thread(traced_train):
     threads = {}
     for role, names in TRAIN_THREADS.items():
         tids = {t for n, t, *_ in spans if n in names}
-        assert len(tids) == 1, (role, tids)
-        threads[role] = tids.pop()
-        assert names <= by_thread[threads[role]], (
-            role, names - by_thread[threads[role]])
-    assert threads["executor"] == executor
-    assert len(set(threads.values())) == len(threads)   # one thread each
+        assert len(tids) == 1 or (role in POOLED and tids), (role, tids)
+        threads[role] = tids
+        recorded = set().union(*(by_thread[t] for t in tids))
+        assert names <= recorded, (role, names - recorded)
+    assert threads["executor"] == {executor}
+    every = [t for tids in threads.values() for t in tids]
+    assert len(set(every)) == len(every)      # no thread in two roles
     # no span's name carries the device kernel fragment the screen's
     # roofline reads
     assert not [n for n in trace.SPANS if "overflow_kernel" in n]

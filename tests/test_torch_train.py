@@ -227,10 +227,12 @@ def test_offloaded_adam_state_bytes_identical(tmp_store_root, state,
     """Given the same gradients, the port's OffloadedAdam writes the same
     master/m/v/compute bytes as the reference's — bit for bit, including
     the ``memascend-bf16`` state mode (bf16 bits rounded to nearest
-    even)."""
+    even).  The 262,145-element leaf spans five of the host kernel's
+    chunks, and with fp32 state the store stripes it over two regions."""
     rng = np.random.default_rng(3)
     init = {"w": rng.standard_normal((33, 17)).astype(np.float32),
-            "b": rng.standard_normal(129).astype(np.float32)}
+            "b": rng.standard_normal(129).astype(np.float32),
+            "e": rng.standard_normal(262_145).astype(np.float32)}
     grads = [{k: (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
               for k, v in init.items()} for _ in range(3)]
     stores = {}
