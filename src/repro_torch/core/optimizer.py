@@ -25,24 +25,27 @@ bf16 state widens into the fp32 staging views exactly and narrows back by
 round-to-nearest-even, bit for bit what the reference's ``ml_dtypes`` casts
 give.
 
-The streamed step is split into three halves so the session's Adam stage
-can pipeline them across threads (SSDTrain, arXiv 2408.10013, hides the
-state I/O the same way):
+The streamed step is split into three halves, which one subgroup loop
+(:meth:`OffloadedAdam.queue_unit`) composes in every overlap mode
+(SSDTrain, arXiv 2408.10013, hides the state I/O the same way):
 
 * :meth:`OffloadedAdam.issue_subgroup`  — acquire one buffer of the
   **double-buffered staging arena** and read (master, m, v) into its fp32
-  views (from the state-prefetch thread, the three reads side by side on
-  the optimizer's read pool),
+  views, the three reads side by side on the optimizer's read pool,
 * :meth:`OffloadedAdam.compute_subgroup` — :func:`adam_update` in place on
-  the staged fp32 state (optimizer thread),
+  the staged fp32 state,
 * :meth:`OffloadedAdam.commit_subgroup_async` — truncate + write back
   master/m/v and the fresh compute-precision weights on the optimizer's
   write-back pool (the four writes side by side), bump the I/O ledger,
   release the staging buffer from the last write's completion callback.
 
-A subgroup's transfers run side by side because one copy thread moves a
-fraction of the host's memory bandwidth, and copies in flight together
-add up (numpy releases the GIL while it copies).
+Pipelined (under full overlap) the loop runs on the session's optimizer
+thread and issues subgroup *k+1* on the optimizer's own state-prefetch
+thread while *k* computes; inline it runs on the caller's thread with
+every subgroup in series.  A subgroup's transfers run side by side
+because one copy thread moves a fraction of the host's memory bandwidth,
+and copies in flight together add up (numpy releases the GIL while it
+copies).
 
 :meth:`step_subgroup` remains the synchronous composition of the three.
 The arena (2 buffers × (3 × max-subgroup fp32 + a truncation scratch)) is
@@ -52,8 +55,11 @@ accounted scratch region.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
+from collections import deque
+from collections.abc import Callable
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 from dataclasses import dataclass
 
@@ -63,6 +69,7 @@ from ..kernels.host_adam import host_adam_f32
 from . import trace
 from .dtypes import (BF16_HOST, bf16_to_f32_, cast_host, f32_to_bf16_,
                      host_dtype)
+from .overlap import OverlapStats, SerialWorker, done_future
 
 F32 = np.dtype(np.float32)
 
@@ -107,8 +114,9 @@ def _flat_state(master, grad, m, v):
 
 
 def adam_update(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
-                v: np.ndarray, step: int, cfg: AdamConfig) -> None:
-    """In-place Adam step on fp32 working copies.
+                v: np.ndarray, step: int, cfg: AdamConfig) -> int:
+    """In-place Adam step on fp32 working copies; returns the threads it
+    ran on.
 
     ``master``, ``m``, ``v`` are fp32 views; callers holding bf16 state
     upcast before and truncate after (exactly the paper's direct-truncation
@@ -119,9 +127,9 @@ def adam_update(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
     of :func:`adam_update_plain` and of the reference's ``adam_update``.
     """
     master, grad, m, v = _flat_state(master, grad, m, v)
-    host_adam_f32(master, grad, m, v,
-                  step=step, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
-                  weight_decay=cfg.weight_decay, lr=cfg.lr)
+    return host_adam_f32(master, grad, m, v, step=step, beta1=cfg.beta1,
+                         beta2=cfg.beta2, eps=cfg.eps,
+                         weight_decay=cfg.weight_decay, lr=cfg.lr)
 
 
 def adam_update_plain(master: np.ndarray, grad: np.ndarray, m: np.ndarray,
@@ -181,22 +189,25 @@ class SubgroupMeta:
 
 
 class _StagingArena:
-    """Double-buffered host staging for the pipelined Adam stage.
+    """Double-buffered host staging for the Adam stage.
 
-    Two buffers, each holding fp32 working copies of one subgroup's
-    (master, m, v) plus a scratch region for half-precision truncation:
-    the I/O thread reads subgroup *k+1* into one buffer while the
-    optimizer thread updates subgroup *k* in the other, and the committed
-    buffer is recycled once its write-back lands.
+    :data:`BUFFERS` buffers, each holding fp32 working copies of one
+    subgroup's (master, m, v) plus a scratch region for half-precision
+    truncation: the I/O thread reads subgroup *k+1* into one buffer while
+    the optimizer thread updates subgroup *k* in the other, and the
+    committed buffer is recycled once its write-back lands.
 
     :meth:`acquire` blocks until a buffer is free.  Deadlock-freedom:
     only the state-prefetch worker blocks here (the read pool's tasks
-    never acquire), and every held buffer is released from an independent
-    thread — a commit's write-completion callback on the optimizer's
-    write-back pool, or the optimizer thread on error paths — never from a
-    task queued behind the blocked acquire.  :meth:`close` wakes blocked
-    waiters, which raise instead of hanging.
+    never acquire, and an inline stage holds one buffer at a time), and
+    every held buffer is released from an independent thread — a commit's
+    write-completion callback on the optimizer's write-back pool, or the
+    stage's thread on error paths — never from a task queued behind the
+    blocked acquire.  :meth:`close` wakes blocked waiters, which raise
+    instead of hanging.
     """
+
+    BUFFERS = 2   # the staging depth: subgroup k+1 read under k's update
 
     def __init__(self, max_elems: int, scratch_bytes: int, tracker,
                  component: str) -> None:
@@ -204,15 +215,15 @@ class _StagingArena:
         self.scratch_bytes = scratch_bytes
         self._tracker = tracker
         self._bufs = []
-        for _ in range(2):
+        for _ in range(self.BUFFERS):
             self._bufs.append((
                 np.empty(3 * max_elems, dtype=np.float32),
                 np.empty(scratch_bytes, dtype=np.uint8),
             ))
         self._handle = tracker.alloc(
-            component, 2 * (3 * max_elems * 4 + scratch_bytes),
+            component, self.BUFFERS * (3 * max_elems * 4 + scratch_bytes),
             tag="adam_staging_arena")
-        self._free = [0, 1]     # guarded-by: _cv
+        self._free = list(range(self.BUFFERS))   # guarded-by: _cv
         self._cv = threading.Condition()
         self._closed = False    # guarded-by: _cv
 
@@ -241,7 +252,7 @@ class _StagingArena:
 
     def idle(self) -> bool:
         with self._cv:
-            return len(self._free) == 2
+            return len(self._free) == self.BUFFERS
 
     def close(self) -> None:
         with self._cv:
@@ -272,14 +283,16 @@ class OffloadedAdam:
     description and keeps peak host usage to the staging arena: 2 buffers of
     max-tensor-size × 3 fp32 + truncation scratch).
 
-    Thread contract: the split halves are designed for two extra session
-    threads — :meth:`issue_subgroup` runs on one I/O thread (the session's
-    state-prefetch worker) and :meth:`compute_subgroup` and
-    :meth:`commit_subgroup_async` on the optimizer worker, with
-    :meth:`begin_step` sequenced before its subgroups on the optimizer
-    worker.  One step is in flight at a time.  The I/O ledger
-    (``last_io_bytes``) is lock-guarded so the training thread can read a
-    coherent value mid-step.
+    Thread contract: the stage runs on one thread the caller picks (the
+    session's optimizer worker under full overlap, its executor
+    otherwise): :meth:`begin_step`, every :meth:`queue_unit` task and
+    :meth:`end_step`, in that order.  ``pipelined`` gives the stage its
+    own state-prefetch thread, on which :meth:`issue_subgroup` runs; the
+    optimizer creates, drains and closes it with the read and write-back
+    pools.  One step is in flight at a time.  The I/O ledger
+    (``last_io_bytes``, ``completed_io_bytes``) is lock-guarded so the
+    training thread can read a coherent value mid-step.  The stage's
+    spans and counters go into ``stats``.
 
     ``write_guard`` (optional, set by the session) is called with the base
     key before the refreshed compute weights are written — the stale-read
@@ -290,7 +303,8 @@ class OffloadedAdam:
     STATE = (MASTER, M, V)
 
     def __init__(self, store, cfg: AdamConfig, *, tracker=None,
-                 component: str = "optimizer_stream") -> None:
+                 component: str = "optimizer_stream", pipelined: bool = False,
+                 stats: OverlapStats | None = None) -> None:
         from .memory_tracker import GLOBAL_TRACKER
         self.store = store
         self.cfg = cfg
@@ -310,8 +324,26 @@ class OffloadedAdam:
         self._read_io_pool: ThreadPoolExecutor | None = None  # guarded-by: _arena_lock
         self._io_pool: ThreadPoolExecutor | None = None  # guarded-by: _arena_lock
         self._closed = False     # guarded-by: _arena_lock
-        # I/O volume of the most recent step
+        # I/O volume of the running step, and of the last one that ended
         self.last_io_bytes = 0   # guarded-by: _io_lock
+        self.completed_io_bytes = 0   # guarded-by: _io_lock
+        self.stats = stats if stats is not None else OverlapStats()
+        # The step's subgroup loop (queue_unit): the work list is appended
+        # by the executor under _work_lock and read by the stage's thread;
+        # the issue count, in-flight deque and poison are the stage
+        # thread's own.  Pipelined, the state-prefetch thread issues
+        # subgroups as far ahead as the arena has buffers (latch=False:
+        # the stage awaits every future it submits, which delivers
+        # failures); inline, the stage issues each one itself, in series.
+        self._work_lock = threading.Lock()
+        self._work: list[str] = []   # guarded-by: _work_lock
+        self._issued = 0
+        self._inflight: deque = deque()   # (work index, staged future)
+        self._poison: BaseException | None = None
+        self._prefetch = (SerialWorker("offload-optim-prefetch", latch=False)
+                          if pipelined else None)
+        # subgroups staged at once, the computing one included
+        self._window = _StagingArena.BUFFERS if pipelined else 1
 
     # -- registration ------------------------------------------------------------
 
@@ -390,9 +422,12 @@ class OffloadedAdam:
                                "offload-optim-read")
 
     def close(self) -> None:  # thread: executor
-        """Free the staging arena's tracker charge and stop both I/O pools
-        (waiting out in-flight transfers).  Idempotent; later streaming
-        calls raise instead of resurrecting the arena or a pool."""
+        """Stop the state-prefetch thread (running out its queue) and both
+        I/O pools (waiting out in-flight transfers), then free the staging
+        arena's tracker charge.  Idempotent; later streaming calls raise
+        instead of resurrecting the arena or a pool."""
+        if self._prefetch is not None:
+            self._prefetch.close()
         with self._arena_lock:
             self._closed = True
             pools = (self._read_io_pool, self._io_pool)
@@ -417,12 +452,12 @@ class OffloadedAdam:
     @trace.spanned("adam.read")
     def issue_subgroup(self, key: str) -> StagedSubgroup:  # thread: executor, optim-prefetch
         """Acquire a staging buffer and read (master, m, v) into its fp32
-        views.  Runs on the state-prefetch thread, which alone blocks on
-        the arena (while both buffers are in use); it hands the three reads
-        to the read pool and waits for all of them.  On a failed read the
-        buffer is released — after every read of the subgroup has
-        finished, so none lands in a recycled buffer — before re-raising
-        the first error."""
+        views.  Pipelined it runs on the state-prefetch thread, which alone
+        blocks on the arena (while both buffers are in use).  It hands the
+        three reads to the read pool and waits for all of them.  On a
+        failed read the buffer is released — after every read of the
+        subgroup has finished, so none lands in a recycled buffer — before
+        re-raising the first error."""
         meta = self.subgroups[key]
         sd = self.cfg.state_np_dtype
         arena = self._ensure_arena()
@@ -471,10 +506,16 @@ class OffloadedAdam:
 
     def compute_subgroup(self, staged: StagedSubgroup,
                          grad_f32: np.ndarray) -> None:  # thread: executor, optim-worker
-        """In-place :func:`adam_update` on the staged fp32 state.  Runs on
-        the optimizer thread; ``grad_f32`` is already unscaled."""
-        adam_update(staged.master, np.reshape(grad_f32, -1), staged.m,
-                    staged.v, self.step_count, self.cfg)
+        """In-place :func:`adam_update` on the staged fp32 state, its
+        elements counted in ``adam_update_elems``, and in
+        ``adam_update_split_elems`` too when the update ran on more than
+        one thread.  ``grad_f32`` is already unscaled."""
+        threads = adam_update(staged.master, np.reshape(grad_f32, -1),
+                              staged.m, staged.v, self.step_count, self.cfg)
+        n = staged.master.size
+        self.stats.bump("adam_update_elems", n)
+        if threads > 1:
+            self.stats.bump("adam_update_split_elems", n)
 
     def commit_subgroup_async(self, staged: StagedSubgroup, *,
                               return_compute: bool = False
@@ -577,13 +618,6 @@ class OffloadedAdam:
         with trace.span("adam.write", key=skey):
             self.store.write(skey, src)
 
-    def commit_subgroup(self, staged: StagedSubgroup, *,
-                        return_compute: bool = False
-                        ) -> np.ndarray | None:  # thread: executor, optim-worker
-        """Blocking commit: the async batch, waited out."""
-        return self.commit_subgroup_async(
-            staged, return_compute=return_compute).result()
-
     def discard_staged(self, staged: StagedSubgroup) -> None:  # thread: any
         """Error-path release of an issued-but-never-committed buffer."""
         self._ensure_arena().release(staged.buf)
@@ -600,12 +634,133 @@ class OffloadedAdam:
         except BaseException:
             self.discard_staged(staged)
             raise
-        return self.commit_subgroup(staged, return_compute=True)
+        return self.commit_subgroup_async(staged,
+                                          return_compute=True).result()
+
+    # -- the stage: one subgroup loop for every overlap mode -----------------------
+
+    def open_step(self) -> None:  # thread: executor
+        """Empty the stage's work list and window for a new step.  The
+        caller runs this once the previous step's unit tasks resolved and
+        before the step's first :meth:`queue_unit`."""
+        with self._work_lock:
+            self._work = []
+        self._issued = 0
+        self._inflight = deque()
+        self._poison = None
 
     def begin_step(self) -> None:  # thread: executor, optim-worker
         self.step_count += 1
         with self._io_lock:
             self.last_io_bytes = 0
+
+    def end_step(self) -> None:  # thread: executor, optim-worker
+        """Queued after a step's last unit: its I/O becomes the completed
+        step's ledger."""
+        with self._io_lock:
+            self.completed_io_bytes = self.last_io_bytes
+
+    def queue_unit(self, unit: str, keys: list[str],
+                   grad: Callable[[str], np.ndarray]
+                   ) -> Callable[[], None]:  # thread: executor
+        """Append one unit's subgroups ``keys`` to the step's work list and
+        return the task that streams them, for the stage's thread;
+        ``grad(key)`` gives a subgroup's unscaled fp32 gradient.  The task
+        returns once every write-back of the unit landed."""
+        with self._work_lock:
+            lo = len(self._work)
+            self._work.extend(keys)
+            hi = len(self._work)
+        return functools.partial(self._run_unit, unit, lo, hi, grad)
+
+    def _run_unit(self, unit: str, lo: int, hi: int,
+                  grad: Callable[[str], np.ndarray]) -> None:  # thread: executor, optim-worker
+        """Work items [lo, hi): subgroup *k+1*'s (master, m, v) streams into
+        the staging arena while *k*'s update runs, and *k−1*'s write-backs
+        drain behind them; inline, each subgroup's write-backs land before
+        the next one is read.
+
+        On any failure the whole in-flight window is drained and the step
+        is **poisoned**: the remaining unit tasks fail fast with the *same*
+        exception instance, so a failure surfaces exactly once while every
+        affected unit's readiness future still refuses to serve its
+        un-updated weights."""
+        if self._poison is not None:
+            raise self._poison
+        commits: list[Future] = []
+        stats = self.stats
+        try:
+            with trace.timed(stats, "adam_stage_seconds", "adam.unit",
+                             unit=unit):
+                for g in range(lo, hi):
+                    self._issue_upto(g + self._window)
+                    idx, staged_fut = self._inflight.popleft()
+                    if idx != g:    # defensive; the reset/cleanup paths
+                        raise RuntimeError(  # keep issue order == work order
+                            f"adam pipeline out of order: staged {idx}, "
+                            f"expected {g}")
+                    with trace.timed(stats, "optim_prefetch_wait_seconds",
+                                     "adam.read_wait", unit=unit):
+                        staged = staged_fut.result()
+                    try:
+                        with trace.timed(stats, "adam_update_seconds",
+                                         "adam.update", key=staged.key):
+                            self.compute_subgroup(staged, grad(staged.key))
+                    except BaseException:
+                        self.discard_staged(staged)
+                        raise
+                    commits.append(self.commit_subgroup_async(staged))
+                    if self._prefetch is None:   # inline: in series
+                        self._land(commits[-1:], unit)
+                self._land(commits, unit)
+        except BaseException as e:
+            self._poison = e
+            self._abort(commits, resume_at=hi)
+            raise
+
+    def _issue_upto(self, upto: int) -> None:  # thread: executor, optim-worker
+        """Issue the work items below ``upto`` not yet issued: on the
+        state-prefetch thread when pipelined, here otherwise.
+
+        Deadlock-freedom of the arena's blocking acquire (inside the issue,
+        on the state-prefetch thread): every held buffer is released by a
+        write-completion callback on the write-back pool (commit), by the
+        stage's thread (error paths), or by the issue's own failure
+        handler — never by a task queued *behind* the blocked issue on the
+        state-prefetch thread itself.  Inline, the previous subgroup's
+        buffer came back before this issue, so the acquire never waits."""
+        with self._work_lock:
+            pending = self._work[self._issued:upto]
+        for key in pending:
+            if self._prefetch is not None:
+                fut = self._prefetch.submit(
+                    functools.partial(self.issue_subgroup, key))
+            else:   # the stage's thread is then the executor
+                fut = done_future(self.issue_subgroup(key))  # analyze: ignore[thread-affinity]
+            self._inflight.append((self._issued, fut))
+            self._issued += 1
+
+    def _land(self, commits: list[Future], unit: str) -> None:  # thread: executor, optim-worker
+        with trace.timed(self.stats, "adam_write_wait_seconds",
+                         "adam.write_wait", unit=unit):
+            for commit in commits:
+                commit.result()
+
+    def _abort(self, commits: list[Future], *, resume_at: int) -> None:  # thread: executor, optim-worker
+        """Failure path of a unit task: wait out this unit's commits (each
+        releases its own buffer), release every issued-but-never-computed
+        staging buffer, and reset the issue counter to ``resume_at``."""
+        for commit in commits:
+            with contextlib.suppress(BaseException):
+                commit.result()
+        while self._inflight:
+            _idx, staged_fut = self._inflight.popleft()
+            try:
+                staged = staged_fut.result()
+            except BaseException:
+                continue        # a failed issue released its own buffer
+            self.discard_staged(staged)
+        self._issued = resume_at
 
     # -- static accounting (paper Fig. 20, at any model scale) ---------------------
 

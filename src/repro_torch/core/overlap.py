@@ -255,14 +255,15 @@ class OverlapStats:
 
     Most fields are written by the single executor thread only.  The
     worker-side counters are accumulated through :meth:`add_worker_seconds`,
-    which locks: on the optimizer worker, ``adam_stage_seconds`` (its unit
-    tasks whole), ``adam_update_seconds`` (the arithmetic),
-    ``optim_prefetch_wait_seconds`` (blocked on a state-prefetch future)
-    and ``adam_write_wait_seconds`` (blocked on a unit's write-backs), and
-    through :meth:`bump` ``adam_update_elems`` (elements updated) and
-    ``adam_update_split_elems`` (those of them in an update split over
-    threads, :func:`repro_torch.kernels.host_adam.threads_for`); on
-    the gradient writer under full overlap, ``overflow_screen_seconds``
+    which locks: on the host Adam stage's thread (the optimizer worker
+    under full overlap, the executor otherwise; see
+    :class:`~repro_torch.core.optimizer.OffloadedAdam`),
+    ``adam_stage_seconds`` (its unit tasks whole), ``adam_update_seconds``
+    (the arithmetic), ``optim_prefetch_wait_seconds`` (blocked on a
+    staged subgroup's state) and ``adam_write_wait_seconds`` (blocked on
+    a unit's write-backs), and through :meth:`bump` ``adam_update_elems``
+    (elements updated) and ``adam_update_split_elems`` (those of them in
+    an update that ran on more than one thread); on the gradient writer under full overlap, ``overflow_screen_seconds``
     (per-region Inf/NaN screens) and ``act_save_seconds``.  The executor's
     counters that :func:`repro_torch.core.trace.timed` keeps
     (``fetch_seconds``, ``optim_gate_seconds``,

@@ -35,9 +35,9 @@ embedding backward, the overflow screen, the loss scaler and the host Adam
 over SSD-resident state (:class:`~repro_torch.core.optimizer.OffloadedAdam`).
 Under ``overlap="full"`` the gradient write-back runs on the
 ``offload-gradwrite`` worker and Adam on ``offload-optim`` (with its state
-reads on ``offload-optim-prefetch``), so step *k*'s Adam overlaps step
-*k+1*'s forward; per-unit readiness futures gate the next fetch and the
-next gradient write of each unit.
+reads on the optimizer's ``offload-optim-prefetch``), so step *k*'s Adam
+overlaps step *k+1*'s forward; per-unit readiness futures gate the next
+fetch and the next gradient write of each unit.
 
 Activation checkpoints (``policy.act_policy``; see
 :func:`~repro_torch.core.stream_plan.resolve_act_policy`) leave the device
@@ -104,7 +104,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.host_adam import threads_for
 from repro_torch.models.layers import split_positions
 from . import trace
 from .buffer_pool import KV_CLASS
@@ -378,22 +377,10 @@ class OffloadSession:
         self._ostats = OverlapStats()
         self._optim_lock = threading.Lock()
         self._optim_futures: dict[str, Future] = {}  # guarded-by: _optim_lock
-        self._optim_io_completed = 0                 # guarded-by: _optim_lock
         self._device_slots: DeviceSlots | None = None
         self._h2d: SerialWorker | None = None
         self._grad_writer: SerialWorker | None = None
         self._optim_worker: SerialWorker | None = None
-        self._optim_prefetch: SerialWorker | None = None
-        # Adam-stage subgroup pipeline bookkeeping (see _exec_optim):
-        # _adam_work is appended by the executor thread under _adam_lock
-        # and read by the optimizer worker; the issue counter and in-flight
-        # deque are touched by the optimizer worker only.
-        self._adam_lock = threading.Lock()
-        # (unit, param key) pairs:
-        self._adam_work: list[tuple[str, str]] = []   # guarded-by: _adam_lock
-        self._adam_issued = 0
-        self._adam_inflight: deque = deque()          # (index, staged fut)
-        self._adam_poison: BaseException | None = None
         # per-unit overflow screen: verdicts land per unit (writer thread
         # under full overlap) and are OR-ed at the barrier.
         self._screen_lock = threading.Lock()
@@ -437,18 +424,15 @@ class OffloadSession:
         if policy.overlap == "full" and mode == "train":
             self._grad_writer = SerialWorker("offload-gradwrite", maxsize=4)
             self._optim_worker = SerialWorker("offload-optim")
-            # The Adam stage's own I/O thread: issues (state reads into the
-            # double-buffered staging arena) run here.  latch=False: every
-            # future is awaited by the optimizer worker, which delivers
-            # failures through the unit readiness future.
-            self._optim_prefetch = SerialWorker("offload-optim-prefetch",
-                                                latch=False)
 
         # Register every parameter.  Train mode seeds master weights + Adam
         # moments on the store; serve mode writes only compute weights.
-        self.optimizer = (OffloadedAdam(self.store, policy.adam,
-                                        tracker=self.tracker)
-                          if mode == "train" else None)
+        # (pipelined on its own state-prefetch thread when the stage has
+        # a thread of its own)
+        self.optimizer = (OffloadedAdam(
+            self.store, policy.adam, tracker=self.tracker,
+            pipelined=self._optim_worker is not None, stats=self._ostats)
+            if mode == "train" else None)
         if self.optimizer is not None:
             # stale-read guard on the Adam commit's compute-weight write
             self.optimizer.write_guard = self._guard_compute_write
@@ -521,11 +505,11 @@ class OffloadSession:
         jobs own swapper tickets), then the gradient writer (its tasks may
         gate on optimizer futures, so the optimizer worker must still be
         alive), then the optimizer worker (whose unit tasks wait on
-        state-prefetch futures), then the state-prefetch worker, and only
-        then the swapper drain that sweeps any ticket nobody claimed.  The
-        optimizer's staging arena is freed after every worker that touches
-        it has stopped, and the flat buffer after the writer (whose DMAs
-        target it) has."""
+        state-prefetch futures), then the optimizer (its state-prefetch
+        thread, its pools and its staging arena), and only then the
+        swapper drain that sweeps any ticket nobody claimed.  The flat
+        buffer is freed after the writer (whose DMAs target it) has
+        stopped."""
         if getattr(self, "_closed", True):
             return
         self._closed = True
@@ -534,8 +518,7 @@ class OffloadSession:
             steps.append(self._kv_cache.close)
         if getattr(self, "_expert_cache", None) is not None:
             steps.append(self._expert_cache.close)
-        for worker_attr in ("_h2d", "_grad_writer", "_optim_worker",
-                            "_optim_prefetch"):
+        for worker_attr in ("_h2d", "_grad_writer", "_optim_worker"):
             worker = getattr(self, worker_attr, None)
             if worker is not None:
                 steps.append(worker.close)
@@ -574,10 +557,6 @@ class OffloadSession:
             self._grad_writer.drain()
         if self._optim_worker is not None:
             self._optim_worker.drain()
-        if self._optim_prefetch is not None:
-            # empty by construction once the optimizer worker drained (unit
-            # tasks wait out their own commits); drained for completeness
-            self._optim_prefetch.drain()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1867,12 +1846,19 @@ class OffloadSession:
         state.overflowed = overflow
         state.apply = self.scaler.update(state.overflowed)
 
+    def _on_stage(self, fn) -> Future:  # thread: executor
+        """Run ``fn`` on the host Adam stage's thread: ``offload-optim``
+        under full overlap, this one otherwise (where it raises here)."""
+        if self._optim_worker is not None:
+            return self._optim_worker.submit(fn)
+        return done_future(fn())
+
     def _exec_optim(self, unit_name: str, state: _ExecState) -> None:  # thread: executor
-        """OptimStepOp: stream one unit's subgroups through the host Adam —
-        inline, or pipelined across the optimizer + state-prefetch workers
-        with a readiness future that resolves when the unit's **last
-        write-back lands** (commit), gating the next step's fetch and
-        grad-write for this unit.
+        """OptimStepOp: queue one unit's subgroups on the host Adam stage
+        (:meth:`~repro_torch.core.optimizer.OffloadedAdam.queue_unit`) and
+        run its task on the stage's thread, with a readiness future that
+        resolves when the unit's **last write-back lands** (commit),
+        gating the next step's fetch and grad-write for this unit.
 
         An overflow-skipped step (``state.apply`` false) returns before
         anything is enqueued, so no state is prefetched for it and nothing
@@ -1885,65 +1871,32 @@ class OffloadSession:
             return                # skipped step: weights unchanged
         if not state.optim_begun:
             state.optim_begun = True
-            if self._optim_worker is not None:
-                # previous-step Adam tasks have all resolved (every unit's
-                # grad write this step gated on its step k-1 future and the
-                # barrier drained the writer), so the pipeline bookkeeping
-                # can be reset from this thread before new work lands
-                with self._adam_lock:
-                    self._adam_work = []
-                self._adam_issued = 0
-                self._adam_inflight = deque()
-                self._adam_poison = None
-                self._optim_worker.submit(self.optimizer.begin_step)
-            else:
-                self.optimizer.begin_step()
-        inv_scale = np.float32(1.0 / state.scale)
-        if self._optim_worker is not None:
-            _unit, meta = self._units[unit_name]
-            with self._adam_lock:
-                lo = len(self._adam_work)
-                self._adam_work.extend(
-                    (unit_name, key) for key in meta)
-                hi = len(self._adam_work)
-            task = (self._optim_unit_paged
-                    if unit_name in self._expert_meta
-                    else self._optim_unit_pipelined)
-            fut = self._optim_worker.submit(
-                functools.partial(task, unit_name, lo, hi, inv_scale))
-        else:
-            self._optim_unit(unit_name, inv_scale)
-            if unit_name in self._expert_meta:
-                self._expert_cache.invalidate_unit(unit_name)
-            fut = done_future()
+            # previous-step Adam tasks have all resolved (every unit's
+            # grad write this step gated on its step k-1 future and the
+            # barrier drained the writer), so the stage's work list can be
+            # reset from this thread before new work lands
+            self.optimizer.open_step()
+            self._on_stage(self.optimizer.begin_step)
+        _unit, meta = self._units[unit_name]
+        update = self.optimizer.queue_unit(
+            unit_name, [f"{unit_name}/{key}" for key in meta],
+            functools.partial(self._unit_grad,
+                              inv_scale=np.float32(1.0 / state.scale)))
+        fut = self._on_stage(functools.partial(self._update_unit, unit_name,
+                                               update))
         with self._optim_lock:
             self._optim_futures[unit_name] = fut
 
-    def _optim_unit(self, unit_name: str, inv_scale: np.float32) -> None:  # thread: executor
-        """Inline (sync/h2d) Adam stage: stream subgroups synchronously
-        (the same three halves, composed back to back)."""
-        _unit, meta = self._units[unit_name]
-        for key in meta:
-            skey = f"{unit_name}/{key}"
-            staged = self.optimizer.issue_subgroup(skey)
-            try:
-                self._adam_compute(staged, inv_scale)
-            except BaseException:
-                self.optimizer.discard_staged(staged)
-                raise
-            self.optimizer.commit_subgroup(staged)
-
-    def _adam_compute(self, staged, inv_scale: np.float32) -> None:  # thread: executor, optim-worker
-        """``compute_subgroup`` on one staged subgroup, its elements
-        counted in ``adam_update_elems``, and in ``adam_update_split_elems``
-        too where :func:`~repro_torch.kernels.host_adam.threads_for` splits
-        the update over threads."""
-        self.optimizer.compute_subgroup(
-            staged, self._unit_grad(staged.key, inv_scale))
-        n = staged.master.size
-        self._ostats.bump("adam_update_elems", n)
-        if threads_for(n) > 1:
-            self._ostats.bump("adam_update_split_elems", n)
+    def _update_unit(self, unit_name: str, update) -> None:  # thread: executor, optim-worker
+        """One unit's Adam task, then, for a paged-MoE unit, expert-page
+        invalidation (the commit rewrote the unit's SSD compute copies)
+        BEFORE the readiness future resolves: the next step's fetch window
+        — and therefore every expert prestage or ensure for this unit —
+        gates on that future, so no page can be pinned while the
+        invalidation drops it."""
+        update()
+        if unit_name in self._expert_meta:
+            self._expert_cache.invalidate_unit(unit_name)
 
     def _unit_grad(self, skey: str, inv_scale: np.float32) -> np.ndarray:  # thread: executor, optim-worker
         """Unscale one subgroup's gradient out of the flat buffer.
@@ -1957,115 +1910,6 @@ class OffloadSession:
         off, size, shape = self._flat_offsets[skey]
         grad = self.flat[off:off + size].reshape(shape)
         return grad if inv_scale == 1 else grad * inv_scale
-
-    # -- the pipelined Adam stage (full overlap) -----------------------------
-
-    def _adam_ensure_issued(self, upto: int) -> None:  # thread: optim-worker
-        """Submit state-prefetch issues for work indices < ``upto``.
-
-        Deadlock-freedom of the arena's blocking acquire (inside the issue,
-        on the state-prefetch worker): every held buffer is released by a
-        write-completion callback on the optimizer's write-back executor
-        (commit), by the optimizer worker (error paths), or by the issue's
-        own failure handler — never by a task queued *behind* the blocked
-        issue on the state-prefetch worker itself.
-        """
-        with self._adam_lock:
-            n = len(self._adam_work)
-            pending = [self._adam_work[i]
-                       for i in range(self._adam_issued, min(upto, n))]
-        for unit_name, key in pending:
-            fut = self._optim_prefetch.submit(functools.partial(
-                self.optimizer.issue_subgroup, f"{unit_name}/{key}"))
-            self._adam_inflight.append((self._adam_issued, fut))
-            self._adam_issued += 1
-
-    def _optim_unit_pipelined(self, unit_name: str, lo: int, hi: int,  # thread: optim-worker
-                              inv_scale: np.float32) -> None:
-        """Optimizer-worker task for one unit's subgroups [lo, hi):
-        subgroup *k+1*'s (master, m, v) streams into the staging arena
-        while *k*'s ``adam_update`` runs, and *k−1*'s write-backs drain
-        behind them.  Returns — resolving the unit's readiness future —
-        only once every commit landed.
-
-        On any failure the whole in-flight window is drained and the step
-        is **poisoned**: the remaining unit tasks fail fast with the *same*
-        exception instance, so a failure surfaces exactly once while every
-        affected unit's readiness future still refuses to serve its
-        un-updated weights."""
-        if self._adam_poison is not None:
-            raise self._adam_poison
-        commits: list[Future] = []
-        stats = self._ostats
-        try:
-            with trace.timed(stats, "adam_stage_seconds", "adam.unit",
-                             unit=unit_name):
-                for g in range(lo, hi):
-                    self._adam_ensure_issued(g + 2)
-                    idx, staged_fut = self._adam_inflight.popleft()
-                    if idx != g:    # defensive; the reset/cleanup paths
-                        raise RuntimeError(  # keep issue order == work order
-                            f"adam pipeline out of order: staged {idx}, "
-                            f"expected {g}")
-                    t0 = time.perf_counter()
-                    try:
-                        with trace.span("adam.read_wait", unit=unit_name):
-                            staged = staged_fut.result()
-                    finally:
-                        stats.add_worker_seconds(
-                            "optim_prefetch_wait_seconds",
-                            time.perf_counter() - t0)
-                    try:
-                        with trace.timed(stats, "adam_update_seconds",
-                                         "adam.update", key=staged.key):
-                            self._adam_compute(staged, inv_scale)
-                    except BaseException:
-                        self.optimizer.discard_staged(staged)
-                        raise
-                    commits.append(
-                        self.optimizer.commit_subgroup_async(staged))
-                with trace.timed(stats, "adam_write_wait_seconds",
-                                 "adam.write_wait", unit=unit_name):
-                    for commit in commits:
-                        commit.result()
-        except BaseException as e:
-            self._adam_poison = e
-            self._adam_abort(commits, resume_at=hi)
-            raise
-
-    def _optim_unit_paged(self, unit_name: str, lo: int, hi: int,  # thread: optim-worker
-                          inv_scale: np.float32) -> None:
-        """Pipelined Adam for a paged-MoE unit, then expert-page
-        invalidation (the commit rewrote the unit's SSD compute copies)
-        BEFORE the readiness future resolves: the next step's fetch window
-        — and therefore every expert prestage or ensure for this unit —
-        gates on that future, so no page can be pinned while the
-        invalidation drops it."""
-        self._optim_unit_pipelined(unit_name, lo, hi, inv_scale)
-        self._expert_cache.invalidate_unit(unit_name)
-
-    def _adam_abort(self, commits: list[Future], *, resume_at: int) -> None:  # thread: optim-worker
-        """Failure path of a unit task: wait out this unit's commits (each
-        releases its own buffer), release every issued-but-never-computed
-        staging buffer, and reset the issue counter to ``resume_at``."""
-        for commit in commits:
-            # the buffer was released in commit's finally
-            with contextlib.suppress(BaseException):
-                commit.result()
-        while self._adam_inflight:
-            _idx, staged_fut = self._adam_inflight.popleft()
-            try:
-                staged = staged_fut.result()
-            except BaseException:
-                continue        # a failed issue released its own buffer
-            self.optimizer.discard_staged(staged)
-        self._adam_issued = resume_at
-
-    def _snapshot_optim_io(self) -> None:  # thread: optim-worker
-        # queued after a step's last OptimStepOp: the completed-step ledger
-        io = self.optimizer.last_io_bytes
-        with self._optim_lock:
-            self._optim_io_completed = io
 
     # -- training workloads --------------------------------------------------
 
@@ -2088,22 +1932,17 @@ class OffloadSession:
         grad_scale = self.scaler.scale   # the flat-buffer grads carry this
         state = self.execute(self.plan("train"), _ExecState(
             self._tokens(tokens), self._tokens(labels), grad_scale))
-        if self._optim_worker is not None and state.apply:
-            self._optim_worker.submit(self._snapshot_optim_io)
+        if state.apply:
+            self._on_stage(self.optimizer.end_step)
 
         ssd_wait = self.swapper.stats.wait_seconds - wait0
         h2d_wait = self._ostats.h2d_wait_seconds - o0["h2d_wait_seconds"]
-        if self._optim_worker is not None:
-            with self._optim_lock:
-                optim_io = self._optim_io_completed
-        else:
-            optim_io = self.optimizer.last_io_bytes
         self.metrics = {
             "loss": float(state.loss),
             "overflowed": state.overflowed,
             "applied": state.apply,
             "loss_scale": self.scaler.scale,
-            "optimizer_io_bytes": optim_io,
+            "optimizer_io_bytes": self.optimizer.completed_io_bytes,
             "peak_host_bytes": self.tracker.peak_allocated,
             # compute-thread stall obtaining device weights at FetchOps —
             # read wait + H2D inline (sync) or staged-future wait (overlap

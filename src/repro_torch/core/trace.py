@@ -25,14 +25,16 @@ Thread and boundary of each span:
   unit), ``expert.route_readback`` (a MoE route stage's expert ids read
   back to the host, which decide the expert pages to fetch);
 * any thread: ``pool_acquire`` (a pool slot taken for a store read);
-* optimizer worker: ``adam.unit`` (one unit's Adam task), ``adam.read_wait``
-  (blocked on a subgroup's staged state), ``adam.update`` (the
-  arithmetic), ``adam.commit_prep`` (narrowing and write guard before the
-  write-backs are submitted), ``adam.write_wait`` (the unit's write-backs
-  waited out);
-* state-prefetch worker: ``adam.read`` (a subgroup's master, m and v read
-  into the staging arena), inside it ``adam.staging_acquire`` (blocked on
-  a free staging buffer);
+* the host Adam stage's thread (the optimizer worker under full overlap,
+  the executor otherwise): ``adam.unit`` (one unit's Adam task),
+  ``adam.read_wait`` (blocked on a subgroup's staged state),
+  ``adam.update`` (the arithmetic), ``adam.commit_prep`` (narrowing and
+  write guard before the write-backs are submitted), ``adam.write_wait``
+  (the unit's write-backs waited out);
+* the optimizer's state-prefetch worker (the stage's thread when
+  inline): ``adam.read`` (a subgroup's master, m and v read into the
+  staging arena), inside it ``adam.staging_acquire`` (blocked on a free
+  staging buffer);
 * read pool: ``adam.store_read`` (one store read);
 * write-back pool: ``adam.write`` (one store write);
 * H2D worker: ``h2d.stage`` (one unit staged), ``swap.wait`` (blocked on a

@@ -1,15 +1,16 @@
 """Build the port's kernel sources and load them with ctypes.
 
 Every ``csrc/*.cu`` file becomes one shared library with a plain C
-interface (no PyTorch headers, so each compiles in seconds), built for
-``sm_90a`` into ``build/repro_torch_kernels/`` under the repository root
-and named by a hash of its source, so an edited source rebuilds and an
-unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source
-at once; :func:`library` builds on first use; :func:`report` returns the
-ptxas report kept beside each build.  Every ``csrc/*.cpp`` file is host
-code: :func:`host_library` builds it with the host C++ compiler (``g++``,
-the one nvcc drives) on first use, into the same directory, named by a
-hash of its source and flags.  Nothing here runs at import.
+interface (no PyTorch headers, so each compiles in seconds), built by
+``nvcc`` for ``sm_90a``; every ``csrc/*.cpp`` file is host code, built by
+the host C++ compiler (``g++``, the one nvcc drives).  Both kinds go into
+``build/repro_torch_kernels/`` under the repository root, named by a hash
+of the compiler's flags and every source that goes into the library, so
+an edited source or flag rebuilds and an unchanged one is reused.
+:func:`build_all` starts one compiler per CUDA source at once;
+:func:`library` builds either kind on first use; :func:`report` returns
+the ptxas report kept beside each CUDA build.  Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -60,18 +61,31 @@ def _host_cxx() -> str:
                        "with the host C++ compiler")
 
 
+def _recipe(name: str):
+    """(source, compiler, flags, headers) of ``name``'s library."""
+    cu = CSRC / f"{name}.cu"
+    if cu.exists():
+        return cu, _nvcc, NVCC_FLAGS, sorted(CSRC.glob("*.cuh"))
+    return CSRC / f"{name}.cpp", _host_cxx, HOST_CXX_FLAGS, []
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    """Where ``name``'s library is built, named by a hash of its sources
+    and its compiler's flags."""
+    src, _cc, flags, headers = _recipe(name)
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in headers:
         digest.update(header.read_bytes())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, str]:
-    """Compile every named source (default: all) concurrently; returns
-    ``{name: ptxas report}`` for the ones built now.  Raises with nvcc's
-    output if any compile fails."""
+    """Compile every named source (default: the CUDA ones) concurrently,
+    each to a name of this process's own that is then renamed into place,
+    so processes that build at once never load a half-written library.
+    Returns ``{name: compiler output}`` (a CUDA build's ptxas report) for
+    the ones built now; raises with the output if any compile fails."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -79,28 +93,31 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
         target = _target(name)
         if target.exists():
             continue
+        src, cc, flags, _headers = _recipe(name)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [cc(), *flags, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, target)
+            tmp, target, src.suffix == ".cu")
     reports, failed = {}, []
-    for name, (proc, tmp, target) in procs.items():
+    for name, (proc, tmp, target, cuda) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             failed.append(f"{name}:\n{out}")
             continue
-        target.with_suffix(".ptxas.txt").write_text(out)
+        if cuda:
+            target.with_suffix(".ptxas.txt").write_text(out)
         os.replace(tmp, target)
         reports[name] = out
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return reports
 
 
 def built(name: str) -> bool:
-    """Whether ``csrc/{name}.cu``'s current source has a build on disk
-    (a process that must not compile checks this before it loads)."""
+    """Whether ``name``'s current sources have a build on disk (a process
+    that must not compile checks this before it loads)."""
     return _target(name).exists()
 
 
@@ -112,48 +129,12 @@ def report(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/{name}.cu``, built if needed."""
+    """The loaded shared library of ``csrc/{name}.cu`` or
+    ``csrc/{name}.cpp``, built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
-        return lib
-
-
-def _host_target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
-    digest.update(" ".join(HOST_CXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
-
-
-def _build_host(name: str) -> Path:
-    """Compile ``csrc/{name}.cpp`` unless its build is on disk: to a name
-    of this process's own, then renamed into place, so processes that
-    build at once never load a half-written library."""
-    target = _host_target(name)
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_host_cxx(), *HOST_CXX_FLAGS, "-o", str(tmp),
-         str(CSRC / f"{name}.cpp")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, target)
-    return target
-
-
-def host_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of the host source ``csrc/{name}.cpp``,
-    built if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(_build_host(name)))
             _libs[name] = lib
         return lib

@@ -7,7 +7,7 @@ float32 operations in the reference's order, so its result is the bits of
 the numpy loop (:func:`repro_torch.core.optimizer.adam_update_plain`) and
 of the reference's ``adam_update``, whatever the thread count or vector
 width.  It builds with the host C++ compiler on first use
-(:func:`repro_torch.kernels._build.host_library`), never at import, and
+(:func:`repro_torch.kernels._build.library`), never at import, and
 is called through ctypes, which releases the GIL for the whole call.
 
 * :func:`threads_for` is the rule for a call's width: the CPUs this
@@ -52,7 +52,7 @@ def threads_for(n: int, cpus_: int | None = None) -> int:
 
 
 def _fns():
-    lib = _build.host_library("host_adam")
+    lib = _build.library("host_adam")
     if lib.host_adam_f32.argtypes is None:
         p, f = ctypes.c_void_p, ctypes.c_float
         args = [p, p, p, p, ctypes.c_int64] + [f] * 9 + [ctypes.c_int]

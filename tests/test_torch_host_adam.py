@@ -311,12 +311,22 @@ def test_the_library_builds_on_first_use_not_at_import():
                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
 
 
-def test_the_host_build_is_named_by_its_source_and_flags():
-    path = _build._host_target("host_adam")
+@pytest.mark.parametrize("name, flags", [("host_adam", "HOST_CXX_FLAGS"),
+                                         ("overflow_check", "NVCC_FLAGS")])
+def test_the_host_build_is_named_by_its_source_and_flags(name, flags,
+                                                         monkeypatch):
+    """A library is named by its compiler's flags and its sources, so a
+    changed flag builds anew instead of loading the old library."""
+    path = _build._target(name)
     assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libhost_adam-") and path.suffix == ".so"
-    host_adam.best_isa()           # loads it, building if need be
-    assert path.exists()
+    assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+    with monkeypatch.context() as m:
+        m.setattr(_build, flags, (*getattr(_build, flags), "-DNDEBUG"))
+        assert _build._target(name) != path
+    assert _build._target(name) == path
+    if name == "host_adam":        # the CUDA build needs nvcc
+        host_adam.best_isa()       # loads it, building if need be
+        assert path.exists()
 
 
 def test_a_missing_compiler_is_named(monkeypatch):

@@ -11,6 +11,7 @@ close() clean afterwards), stale compute weights are never served, and
 every staged buffer goes back to the arena (tracker balance zero)."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -44,45 +45,65 @@ def _policy(root, overlap="full", **adam):
 
 def test_state_prefetch_worker_only_under_full(tmp_store_root):
     with OffloadSession(_model(), _policy(tmp_store_root + "f")) as s:
-        assert s._optim_prefetch is not None
+        assert s.optimizer._prefetch is not None
         assert any(t.name == "offload-optim-prefetch"
                    for t in threading.enumerate())
     with OffloadSession(_model(), _policy(tmp_store_root + "s",
                                           overlap="sync")) as s:
-        assert s._optim_prefetch is None
+        assert s.optimizer._prefetch is None
 
 
-def test_pipeline_prefetches_next_subgroup_under_compute(tmp_store_root):
+@pytest.mark.parametrize("overlap, window", [("full", 2), ("sync", 1)])
+def test_pipeline_prefetches_next_subgroup_under_compute(tmp_store_root,
+                                                         overlap, window):
     """The point of the stage: while subgroup k computes, subgroup k+1's
     issue is already queued — observed as issues submitted ahead of the
-    computes that consume them."""
+    computes that consume them.  Inline (sync) the stage keeps subgroups
+    in series instead: none is issued before the previous one's
+    write-backs have landed."""
     b = _batches(1)[0]
-    with OffloadSession(_model(), _policy(tmp_store_root)) as s:
-        issues, computes = [], []
+    with OffloadSession(_model(), _policy(tmp_store_root, overlap)) as s:
+        issues, computes, commits = [], [], []
         real_issue = s.optimizer.issue_subgroup
         real_compute = s.optimizer.compute_subgroup
+        real_commit = s.optimizer.commit_subgroup_async
 
         def issue(key):
-            issues.append(key)          # runs FIFO on the prefetch worker
+            # runs FIFO on the prefetch worker (full) or the executor
+            issues.append((key, all(c.done() for c in commits)))
             return real_issue(key)
 
         def compute(staged, grad):
-            # _adam_issued is optimizer-worker-thread state, read here on
+            # the issue count is the stage thread's state, read here on
             # that same thread: a deterministic probe of the window depth
-            computes.append((staged.key, s._adam_issued))
+            computes.append((staged.key, s.optimizer._issued))
             return real_compute(staged, grad)
 
+        def commit(staged, **kw):
+            commits.append(real_commit(staged, **kw))
+            return commits[-1]
+
+        def slow_write(key, data):
+            time.sleep(0.002)         # a write-back still in flight shows
+            return real_write(key, data)
+
+        real_write = s.store.write
+        s.store.write = slow_write
         s.optimizer.issue_subgroup = issue
         s.optimizer.compute_subgroup = compute
+        s.optimizer.commit_subgroup_async = commit
         s.train_step(b["tokens"], b["labels"])
         s.synchronize()
         n_sub = len(s.optimizer.subgroups)
-        assert issues == [k for k, _ in computes]  # same subgroups, order
+        assert [k for k, _ in issues] == [k for k, _ in computes]
         assert len(issues) == n_sub
         # double buffering: when subgroup k computes, subgroup k+1's issue
-        # has already been submitted to the state-prefetch worker
+        # has already been submitted to the state-prefetch worker; inline
+        # only subgroup k has been issued
         for k, (_key, issued_then) in enumerate(computes):
-            assert issued_then == min(k + 2, n_sub)
+            assert issued_then == min(k + window, n_sub)
+        if overlap == "sync":
+            assert all(landed for _key, landed in issues)
         assert s.optimizer.staging_idle()
     s.tracker.assert_quiescent()
 

@@ -109,7 +109,7 @@ def test_full_overlap_runs_pipeline_legs_off_thread(tmp_store_root):
         assert s.optimizer.staging_idle()
         assert m["applied"]
         # the completed-step I/O ledger lands with synchronize()
-        assert s._optim_io_completed > 0
+        assert s.optimizer.completed_io_bytes > 0
     s.tracker.assert_quiescent()
 
 

@@ -19,6 +19,7 @@ from repro_torch.core import (AdaptiveBufferPool, AlignmentFreeAllocator,
                               trace)
 from repro_torch.core.model_adapter import make_offloadable_lm
 from repro_torch.data import DataLoader, SyntheticTextDataset
+from repro_torch.kernels import host_adam
 from repro_torch.serve import OffloadedDecoder
 
 torch.set_num_threads(2)
@@ -85,12 +86,12 @@ def _batches(n):
     return [dl.next_batch() for _ in range(n)]
 
 
-def _train(root, steps: int, prof=None):
+def _train(root, steps: int, prof=None, overlap="full"):
     """``steps`` train steps and a synchronize; the step metrics with the
     embedding's master after them, the overlap counters, and the spans if
     ``prof`` records."""
     model = make_offloadable_lm(CFG, 0, device="cpu")
-    with OffloadSession(model, _policy(root)) as s:
+    with OffloadSession(model, _policy(root, overlap)) as s:
         if prof is not None:
             prof.start()
         metrics = [dict(s.train_step(b["tokens"], b["labels"]))
@@ -106,6 +107,12 @@ def _train(root, steps: int, prof=None):
 @pytest.fixture(scope="module")
 def traced_train(tmp_path_factory):
     return _train(str(tmp_path_factory.mktemp("traced")), 2, _profiler())
+
+
+@pytest.fixture(scope="module")
+def traced_sync_train(tmp_path_factory):
+    return _train(str(tmp_path_factory.mktemp("traced_sync")), 2,
+                  _profiler(), overlap="sync")
 
 
 def test_train_step_records_each_span_on_its_own_thread(traced_train):
@@ -160,14 +167,31 @@ def test_untraced_run_records_nothing_and_computes_the_same_bits(
             assert a[key] == b[key], key
 
 
-def test_adam_counters_split_the_stage(traced_train):
-    _metrics, c, _spans_ = traced_train
+@pytest.mark.parametrize("run", ["traced_train", "traced_sync_train"])
+def test_adam_counters_split_the_stage(run, request):
+    """Every overlap mode splits its Adam stage the same way: update,
+    read and write-back waits inside the stage's seconds, and the
+    updated elements counted as ``test_torch_host_adam`` expects (a tiny
+    model's leaves are far under the split's minimum)."""
+    _metrics, c, spans = request.getfixturevalue(run)
     parts = (c["adam_update_seconds"] + c["optim_prefetch_wait_seconds"]
              + c["adam_write_wait_seconds"])
     assert c["adam_update_seconds"] > 0
     assert c["adam_write_wait_seconds"] > 0
+    for part in ("adam_update_seconds", "optim_prefetch_wait_seconds",
+                 "adam_write_wait_seconds"):
+        assert c[part] <= c["adam_stage_seconds"], part
     assert 0 < parts <= c["adam_stage_seconds"]
     assert c["optim_gate_seconds"] > 0 and c["fetch_seconds"] > 0
+    sizes = [a.size for u in make_offloadable_lm(CFG, 0, device="cpu").units
+             for a in u.params.values()]
+    assert c["adam_update_elems"] == 2 * sum(sizes)       # two steps
+    assert c["adam_update_split_elems"] == 2 * sum(
+        n for n in sizes if host_adam.threads_for(n) > 1) == 0
+    names = {n for n, *_ in spans}
+    assert {"adam.unit", "adam.read_wait", "adam.update",
+            "adam.write_wait", "adam.read", "adam.store_read",
+            "adam.write"} <= names
 
 
 def test_pool_of_depth_one_counts_acquire_wait(tmp_store_root, rng):
