@@ -219,3 +219,119 @@ def test_roundtrip_property(tmp_path_factory, shape, dtype, seed):
     eng.write("t", x)
     np.testing.assert_array_equal(eng.read_new("t", dtype, tuple(shape)), x)
     eng.close()
+
+
+# -- reads land in the caller's buffer (os.preadv, no temporary bytes) --------
+
+@pytest.mark.parametrize("n_devices", [1, 2])
+def test_striped_read_fills_out_in_place(tmp_store_root, rng, n_devices):
+    """An odd-sized tensor over ``min_stripe`` reads into ``out`` itself:
+    the engine returns the caller's array, not a copy, with every byte."""
+    eng = DirectNVMeEngine(tmp_store_root, n_devices=n_devices,
+                           device_capacity=1 << 24, min_stripe=1 << 20)
+    x = rng.integers(0, 256, size=(3 << 20) + 5, dtype=np.uint8)
+    eng.write("t", x)
+    assert len(eng._locations["t"][2]) == n_devices
+    out = np.zeros_like(x)
+    assert eng.read("t", out) is out
+    np.testing.assert_array_equal(out, x)
+    eng.close()
+
+
+def test_read_allocates_no_stripe_sized_temporary(tmp_store_root, rng):
+    """Reading 16 MiB traces under 1 MiB of Python allocations: no stripe
+    is read into a fresh ``bytes`` and copied over."""
+    import tracemalloc
+    eng = DirectNVMeEngine(tmp_store_root, n_devices=2,
+                           device_capacity=1 << 25, min_stripe=1 << 20)
+    x = rng.integers(0, 256, size=16 << 20, dtype=np.uint8)
+    eng.write("t", x)
+    out = np.empty_like(x)
+    eng.read("t", out)                 # the worker threads are up
+    out[:] = 0
+    tracemalloc.start()
+    try:
+        eng.read("t", out)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    np.testing.assert_array_equal(out, x)
+    assert peak < 1 << 20, peak
+    eng.close()
+
+
+def test_read_resumes_after_partial_preadv(tmp_store_root, rng, monkeypatch):
+    """A call that returns fewer bytes than asked is followed by another at
+    the advanced offset, so every byte lands however the kernel splits the
+    read."""
+    import os
+    real = os.preadv
+    calls = []
+
+    def at_most_4k(fd, buffers, offset):
+        calls.append(offset)
+        return real(fd, [memoryview(buffers[0])[:4096]], offset)
+
+    eng = DirectNVMeEngine(tmp_store_root, n_devices=2,
+                           device_capacity=1 << 22, min_stripe=1 << 12)
+    x = rng.integers(0, 256, size=(1 << 16) + 7, dtype=np.uint8)
+    eng.write("t", x)
+    monkeypatch.setattr(os, "preadv", at_most_4k)
+    out = np.zeros_like(x)
+    eng.read("t", out)
+    np.testing.assert_array_equal(out, x)
+    assert len(calls) >= x.nbytes // 4096
+    eng.close()
+
+
+def test_read_into_non_contiguous_out_raises(tmp_store_root, rng):
+    """A strided ``out`` would be filled through a copy and come back
+    stale, so the engine refuses it."""
+    eng = DirectNVMeEngine(tmp_store_root, n_devices=2,
+                           device_capacity=1 << 22, min_stripe=1 << 12)
+    x = rng.standard_normal((64, 32)).astype(np.float32)
+    eng.write("t", x)
+    out = np.empty((32, 64), np.float32).T
+    assert out.shape == x.shape and not out.flags.c_contiguous
+    with pytest.raises(ValueError, match="non-contiguous"):
+        eng.read("t", out)
+    eng.close()
+
+
+@settings(max_examples=20, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(shape=st.lists(st.integers(min_value=1, max_value=64), min_size=1,
+                      max_size=3),
+       dtype=st.sampled_from([np.float32, np.float16, np.int32, np.uint8,
+                              "bf16"]),
+       seed=st.integers(min_value=0, max_value=2**31))
+def test_port_writes_read_back_by_the_reference_engine(
+        tmp_path_factory, shape, dtype, seed):
+    """What the port's engine writes, the reference's engine reads back
+    byte for byte from the same regions and extents, and so does the
+    port's own read.  bf16 is ``uint16`` bits in the port and
+    ``ml_dtypes.bfloat16`` in the reference."""
+    from repro.core.nvme import DirectNVMeEngine as RefEngine, Extent
+    root = str(tmp_path_factory.mktemp("parity"))
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 100).astype(
+        ml_dtypes.bfloat16 if dtype == "bf16" else dtype)
+    port_x = x.view(np.uint16) if dtype == "bf16" else x
+    port = DirectNVMeEngine(root, n_devices=2, device_capacity=1 << 22,
+                            min_stripe=1 << 8)
+    port.write("t", port_x)
+    ref = RefEngine(root, n_devices=2, device_capacity=1 << 22,
+                    min_stripe=1 << 8)
+    try:
+        d, s, extents = port._locations["t"]
+        ref._locations["t"] = (d, s, [Extent(e.device, e.offset, e.length)
+                                      for e in extents])
+        theirs = ref.read_new("t", x.dtype, x.shape)
+        ours = port.read_new("t", port_x.dtype, port_x.shape)
+        np.testing.assert_array_equal(theirs.view(np.uint8).reshape(-1),
+                                      x.view(np.uint8).reshape(-1))
+        np.testing.assert_array_equal(ours.view(np.uint8).reshape(-1),
+                                      theirs.view(np.uint8).reshape(-1))
+    finally:
+        ref.close()
+        port.close()
