@@ -1,0 +1,8 @@
+"""``adam_wait_s``, read the same way in the Kimi Linear cell."""
+
+from pathlib import Path
+
+from bench import load_module
+
+read = load_module(Path(__file__).with_name("adam_wait_s.py"),
+                   "portbench_metric_adam_wait_s").read

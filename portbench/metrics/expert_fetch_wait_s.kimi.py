@@ -1,0 +1,9 @@
+"""``expert_fetch_wait_s``, read the same way in the Kimi Linear
+cell."""
+
+from pathlib import Path
+
+from bench import load_module
+
+read = load_module(Path(__file__).with_name("expert_fetch_wait_s.py"),
+                   "portbench_metric_expert_fetch_wait_s").read

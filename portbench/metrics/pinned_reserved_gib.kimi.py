@@ -1,0 +1,9 @@
+"""``pinned_reserved_gib``, read the same way in the Kimi Linear
+cell."""
+
+from pathlib import Path
+
+from bench import load_module
+
+read = load_module(Path(__file__).with_name("pinned_reserved_gib.py"),
+                   "portbench_metric_pinned_reserved_gib").read

@@ -4,8 +4,8 @@ and the port's own (:data:`PORT_MODELS`, which the JAX package has not).
 ``get_config("gemma-7b")`` accepts dashed ids (the ``--arch`` flag form).
 """
 
-from .base import (INPUT_SHAPES, InputShape, MLAConfig, ModelConfig,
-                   MoEConfig, SSMConfig)
+from .base import (INPUT_SHAPES, InputShape, KDAConfig, MLAConfig,
+                   ModelConfig, MoEConfig, SSMConfig)
 
 from .gemma_7b import CONFIG as _gemma_7b
 from .starcoder2_15b import CONFIG as _starcoder2_15b
@@ -18,6 +18,7 @@ from .xlstm_1_3b import CONFIG as _xlstm_13b
 from .qwen3_4b import CONFIG as _qwen3_4b
 from .deepseek_v3_671b import CONFIG as _deepseek_v3
 from .moonlight_16b_a3b import CONFIG as _moonlight
+from .kimi_linear_48b_a3b import CONFIG as _kimi_linear
 from .paper_models import PAPER_MODELS
 
 ARCHS: dict[str, ModelConfig] = {
@@ -31,7 +32,8 @@ ALL_MODELS: dict[str, ModelConfig] = {**ARCHS, **PAPER_MODELS}
 
 # configurations only the port runs: kept out of the registries that
 # tests hold against the JAX package
-PORT_MODELS: dict[str, ModelConfig] = {_moonlight.name: _moonlight}
+PORT_MODELS: dict[str, ModelConfig] = {
+    c.name: c for c in [_moonlight, _kimi_linear]}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -49,5 +51,6 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = ["ARCHS", "ALL_MODELS", "PAPER_MODELS", "PORT_MODELS",
            "INPUT_SHAPES",
-           "InputShape", "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig",
+           "InputShape", "KDAConfig", "ModelConfig", "MoEConfig", "MLAConfig",
+           "SSMConfig",
            "get_config"]

@@ -39,6 +39,10 @@ class MoEConfig:
     # scores of the chosen k renormalised, no auxiliary loss)
     scoring: str = "softmax"
     routed_scale: float = 1.0    # routed weights' factor (sigmoid gate)
+    # the experts this chip holds, [first, end) of the n_experts the router
+    # picks from (expert parallelism's share); None: all of them.  Routing
+    # and capacity run over all n_experts; only the held ones are computed
+    held: tuple[int, int] | None = None
 
     def __post_init__(self):
         if self.scoring not in ("softmax", "sigmoid"):
@@ -46,6 +50,20 @@ class MoEConfig:
                              f"{self.scoring!r}")
         if self.scoring == "softmax" and self.routed_scale != 1.0:
             raise ValueError("routed_scale belongs to the sigmoid gate")
+        lo, hi = self.held_range
+        if not 0 <= lo < hi <= self.n_experts:
+            raise ValueError(f"held experts {self.held} outside the "
+                             f"{self.n_experts} the router picks from")
+
+    @property
+    def held_range(self) -> tuple[int, int]:
+        return tuple(self.held) if self.held is not None \
+            else (0, self.n_experts)
+
+    @property
+    def n_held(self) -> int:
+        lo, hi = self.held_range
+        return hi - lo
 
 
 @dataclass(frozen=True)
@@ -57,6 +75,28 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    # False: the rope columns of q and the shared key head stay unrotated
+    # (Kimi Linear's mla_use_nope; its KDA layers carry position)
+    use_rope: bool = True
+
+
+@dataclass(frozen=True)
+class KDAConfig:
+    """Kimi Delta Attention [arXiv:2510.26692] beside MLA: which layers mix
+    by which, from the published 1-based lists, and the KDA mixer's shape
+    (``n_heads`` heads of ``head_dim`` for q, k and v, and the width of
+    the decay's and output gate's low-rank factors; a causal depthwise
+    conv of ``conv_kernel`` taps)."""
+
+    kda_layers: tuple[int, ...]
+    full_attn_layers: tuple[int, ...]
+    n_heads: int = 32
+    head_dim: int = 128
+    conv_kernel: int = 4
+
+    @property
+    def width(self) -> int:
+        return self.n_heads * self.head_dim
 
 
 @dataclass(frozen=True)
@@ -106,6 +146,7 @@ class ModelConfig:
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
+    kda: KDAConfig | None = None     # KDA layers beside MLA ones
     attn_period: int = 1         # hybrid: 1 attention layer per this many
                                  # (jamba: 8 -> layers i%8==0 are attention)
     moe_period: int = 1          # MoE FFN every this many layers (jamba: 2);
@@ -132,6 +173,14 @@ class ModelConfig:
             raise ValueError(f"{self.name}: first_dense_layers needs a MoE "
                              f"config, a dense d_ff and a MoE layer after "
                              f"them")
+        if self.kda is not None:
+            layers = sorted(self.kda.kda_layers + self.kda.full_attn_layers)
+            if layers != list(range(1, self.n_layers + 1)) or \
+                    self.mla is None:
+                raise ValueError(f"{self.name}: kda_layers and "
+                                 f"full_attn_layers must split layers 1.."
+                                 f"{self.n_layers} between them, the full "
+                                 f"ones MLA")
 
     def is_moe_layer(self, i: int) -> bool:
         """Whether layer ``i``'s FFN is the MoE (after the leading dense
@@ -148,7 +197,9 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     def is_attention_layer(self, i: int) -> bool:
-        """Hybrid interleave: which layers are attention (vs SSM)."""
+        """Hybrid interleave: which layers are attention (vs SSM or KDA)."""
+        if self.kda is not None:
+            return i + 1 in self.kda.full_attn_layers
         if self.family != "hybrid":
             return True
         return i % self.attn_period == self.attn_period - 1
@@ -201,6 +252,8 @@ class ModelConfig:
             return shapes
         if self.family == "hybrid" and not self.is_attention_layer(layer):
             shapes.update(self._mamba_shapes())
+        elif self.kda is not None and not self.is_attention_layer(layer):
+            shapes.update(self._kda_shapes())
         else:
             if self.mla is not None:
                 m = self.mla
@@ -228,7 +281,7 @@ class ModelConfig:
         if self.is_moe_layer(layer):
             e = self.moe
             shapes["moe.w_router"] = (d, e.n_experts)
-            for i in range(e.n_experts):
+            for i in range(e.n_held):
                 shapes[f"moe.expert{i}.w_gate"] = (d, e.d_ff_expert)
                 shapes[f"moe.expert{i}.w_up"] = (d, e.d_ff_expert)
                 shapes[f"moe.expert{i}.w_down"] = (e.d_ff_expert, d)
@@ -256,6 +309,16 @@ class ModelConfig:
             "ssm.w_out": (di, d),
         }
 
+    def _kda_shapes(self) -> dict[str, tuple]:
+        k, d = self.kda, self.d_model
+        w, r = k.width, k.head_dim
+        shapes = {f"kda.w_{x}": (d, w) for x in "qkv"}
+        shapes.update({f"kda.conv_{x}": (k.conv_kernel, w) for x in "qkv"})
+        shapes.update({"kda.w_fa": (d, r), "kda.w_fb": (r, w),
+                       "kda.w_b": (d, k.n_heads), "kda.w_ga": (d, r),
+                       "kda.w_gb": (r, w), "kda.w_o": (w, d)})
+        return shapes
+
     @staticmethod
     def class_of_param(name: str) -> str:
         """Pool shape class of a streamed tensor (paper §IV-B grouping)."""
@@ -269,11 +332,14 @@ class ModelConfig:
         if short.startswith("ssm.") or short.startswith("mlstm.") \
                 or short.startswith("slstm."):
             return "ssm"
-        if short.startswith("attn."):
+        if short.startswith("attn.") or short in ("kda.w_q", "kda.w_k",
+                                                  "kda.w_v", "kda.w_o"):
             # paper: K/V identical under GQA get one subpool; Q/O another
-            if short in ("attn.w_k", "attn.w_v"):
+            if short in ("attn.w_k", "attn.w_v", "kda.w_k", "kda.w_v"):
                 return "kv_proj"
             return "qo_proj"
+        if short.startswith("kda."):
+            return "ssm"      # the linear recurrence's own gates and taps
         return "other"
 
     def pool_census(self, *, inflight_blocks: int = 2, shards: int = 1):
@@ -283,6 +349,8 @@ class ModelConfig:
         nbytes: dict[str, int] = {}
         per_block: dict[str, int] = {}
         period = max(self.attn_period, self.moe_period)
+        if self.kda is not None:
+            period = self.n_layers
         if self.ssm is not None and self.ssm.kind == "xlstm":
             period = max(period, self.ssm.slstm_every)
         lead = self.first_dense_layers

@@ -4,15 +4,17 @@ cached decode.
 Port of ``src/repro/core/model_adapter.py``.  The session streams
 *unstacked* per-block parameter dicts (one block on the device at a time);
 this adapter builds them and wires the applies the session runs per unit.
-Restriction, as in the reference: the config must be layer-homogeneous
-(period 1), but for leading dense layers ahead of a MoE period
-(``first_dense_layers``, which the reference has not): those blocks run
-the dense FFN and stream whole, never paged.  Every mixer (attention,
-MLA, Mamba, mLSTM, sLSTM) trains, evaluates and runs uncached decode,
-with a dense or MoE FFN.  The cached-decode applies (``block_prefill`` /
-``block_step`` / ``block_verify``, ``kv_shape``) exist for attention
-mixers only, as in the reference: over an MLA latent or a recurrent
-state a ``DecodeSpec`` session raises.
+Each block's (mixer, ffn) kinds come from that block's own parameters
+(:func:`block_kinds`), so the layers need not be homogeneous, where the
+reference asks for a period of 1: Kimi Linear's KDA and MLA blocks stream
+through one plan, and leading dense layers ahead of a MoE period
+(``first_dense_layers``) run the dense FFN and stream whole, never paged.
+Every mixer (attention, MLA, KDA, Mamba, mLSTM, sLSTM) trains, evaluates
+and runs uncached decode, with a dense or MoE FFN.  The cached-decode
+applies (``block_prefill`` / ``block_step`` / ``block_verify``,
+``kv_shape``) exist where every block is attention, as in the reference:
+over an MLA latent, a KDA state or a recurrent state a ``DecodeSpec``
+session raises, naming the mixers.
 
 Expert paging (``expert_paging="all" | "routed"``) splits each MoE block's
 stacked ``(E, ...)`` expert tensors into per-expert params
@@ -51,28 +53,25 @@ from repro_torch.models.moe import (_capacity, moe_ffn, route_top_k,
                                     router_logits)
 from repro_torch.models.transformer import (apply_ffn, apply_layer,
                                             apply_mixer, ffn_kind,
-                                            init_layer_params, layer_period,
-                                            mixer_kind)
+                                            init_layer_params)
 from .dtypes import to_host, torch_dtype
 from .offload_engine import OffloadableModel, OffloadUnit
 
 
-def _kinds(cfg: ModelConfig) -> tuple[str, str]:
-    """(mixer, ffn) kinds of the period's one layer."""
-    if layer_period(cfg) != 1:
-        raise ValueError(
-            f"{cfg.name}: offloaded models require layer-homogeneous "
-            f"configs (period==1); got period={layer_period(cfg)}")
-    lead = cfg.first_dense_layers
-    return mixer_kind(cfg, lead), ffn_kind(cfg, lead)
+# a mixer kind by the parameter only that kind of block has
+_MIXER_KEYS = (("kda.w_q", "kda"), ("attn.w_dkv", "mla"), ("attn.w_q", "attn"),
+               ("ssm.w_in_x", "mamba"), ("mlstm.w_q", "mlstm"),
+               ("slstm.w_x", "slstm"))
 
 
-def _block_kinds(kinds: tuple[str, str], params) -> tuple[str, str]:
-    """A block's kinds from its parameters: a leading dense block of a
-    MoE config has no router."""
-    if kinds[1] == "moe" and "moe.w_router" not in params:
-        return kinds[0], "dense"
-    return kinds
+def block_kinds(params) -> tuple[str, str]:
+    """A block's (mixer, ffn) kinds from its own parameters: blocks of
+    one model may mix differently (KDA beside MLA) and a leading dense
+    block of a MoE config has no router."""
+    mixer = next(kind for key, kind in _MIXER_KEYS if key in params)
+    ffn = "moe" if "moe.w_router" in params else \
+        "dense" if "ffn.w_up" in params else "none"
+    return mixer, ffn
 
 
 def _expert_names(x: int) -> tuple[str, str, str]:
@@ -86,7 +85,7 @@ def _split_experts(cfg: ModelConfig, params: dict) -> dict:
     params = dict(params)
     stacks = [params.pop(k) for k in ("moe.w_gate", "moe.w_up",
                                       "moe.w_down")]
-    for x in range(cfg.moe.n_experts):
+    for x in range(cfg.moe.n_held):
         for name, stack in zip(_expert_names(x), stacks, strict=True):
             params[name] = np.ascontiguousarray(stack[x])
     return params
@@ -94,13 +93,16 @@ def _split_experts(cfg: ModelConfig, params: dict) -> dict:
 
 def _expert_meta(cfg: ModelConfig, units) -> dict | None:
     """``expert_meta`` of units that carry per-expert pages (None when
-    none does): unit name -> {"n_experts", "experts": name triples}."""
+    none does): unit name -> {"n_experts": the pages' count, "experts":
+    name triples, "held": the global ids [first, end) the pages are,
+    page x expert first + x}."""
     paged = [u.name for u in units if _expert_names(0)[0] in u.params]
     if not paged:
         return None
-    e = cfg.moe.n_experts
+    e = cfg.moe.n_held
     return {name: {"n_experts": e,
-                   "experts": [_expert_names(x) for x in range(e)]}
+                   "experts": [_expert_names(x) for x in range(e)],
+                   "held": cfg.moe.held_range}
             for name in paged}
 
 
@@ -119,13 +121,13 @@ def make_offloadable_lm(cfg: ModelConfig, generator_or_seed,
     ``"bfloat16"`` rounds each drawn tensor to bf16 bits on its way to
     the host, half the host memory, for serving only (a train session
     refuses them)."""
-    kinds = _kinds(cfg)
     if expert_paging not in ("off", "all", "routed"):
         raise ValueError(f"expert_paging must be 'off'|'all'|'routed', got "
                          f"{expert_paging!r}")
-    if expert_paging != "off" and kinds[1] != "moe":
+    ffns = {ffn_kind(cfg, i) for i in range(cfg.n_layers)}
+    if expert_paging != "off" and "moe" not in ffns:
         raise ValueError(f"{cfg.name}: expert_paging={expert_paging!r} "
-                         f"needs a MoE config (ffn kind is {kinds[1]!r})")
+                         f"needs a MoE config (ffn kinds {sorted(ffns)})")
     dev = resolve_device(device)
     if isinstance(generator_or_seed, torch.Generator):
         gen = generator_or_seed
@@ -169,22 +171,23 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
     """An OffloadableModel over existing units (any objects with ``.name``,
     ``.kind`` and ``.params`` of numpy arrays), applies on ``device``.
     Units holding per-expert pages get the expert-paged applies."""
-    kinds = _kinds(cfg)
     dev = resolve_device(device)
     own = [OffloadUnit(u.name, u.kind,
                        {k: np.asarray(v) for k, v in u.params.items()})
            for u in units]
     expert_meta = _expert_meta(cfg, own)
+    mixers = sorted({block_kinds(u.params)[0] for u in own
+                     if u.kind == "block"})
 
     def embed_apply(params, tokens):
         return embed_lookup(params["embed"].to(compute_dtype), tokens,
                             scale=cfg.embed_scale)
 
     def block_apply(params, h):
-        return apply_layer(cfg, _block_kinds(kinds, params), params, h)[0]
+        return apply_layer(cfg, block_kinds(params), params, h)[0]
 
     def ffn(params, h):
-        return apply_ffn(cfg, _block_kinds(kinds, params)[1], params, h)[0]
+        return apply_ffn(cfg, block_kinds(params)[1], params, h)[0]
 
     def head_logits(params, h):
         h = rms_norm(h, params["final_norm"].to(compute_dtype), cfg.rms_eps)
@@ -226,16 +229,26 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
     applies = dict(block_prefill=block_prefill, block_step=block_step,
                    block_verify=block_verify, kv_shape=kv_shape)
     if expert_meta is not None:
-        applies.update(_paged_applies(cfg, kinds[0]))
+        applies.update(_paged_applies(cfg))
         applies["expert_capacity"] = lambda t: _capacity(cfg, t)
-    if kinds[0] != "attn":
+    if mixers != ["attn"]:
         # cached decode takes attention mixers only, as in the reference
         # (the MLA latent and the recurrent states are the resident
         # model's caches): keep the applies of the train and uncached
-        # paths
+        # paths, and refuse a DecodeSpec session where it asks the pages'
+        # shape, naming the mixers
+        def refuse(*args, **kwargs):
+            raise ValueError(
+                "no cached-decode applies for blocks of "
+                f"{', '.join(m.upper() for m in mixers)}: decode="
+                "DecodeSpec(...) needs attention mixers only (train and "
+                "uncached decode run these blocks)")
+
         applies = {k: v for k, v in applies.items()
                    if k in ("block_route", "block_moe", "block_moe_bwd",
                             "expert_capacity")}
+        applies.update(block_prefill=refuse, block_step=refuse,
+                       block_verify=refuse, kv_shape=refuse)
     return OffloadableModel(units=own, embed_apply=embed_apply,
                             class_of=ModelConfig.class_of_param, device=dev,
                             block_apply=block_apply, head_loss=head_loss,
@@ -243,7 +256,7 @@ def from_numpy_units(cfg: ModelConfig, units, compute_dtype=torch.bfloat16,
                             **applies)
 
 
-def _paged_applies(cfg: ModelConfig, mk: str) -> dict:
+def _paged_applies(cfg: ModelConfig) -> dict:
     """The expert-paged applies of a MoE block: a routing half (the mixer
     and the router's top-k, whose indices the host reads back to decide
     which expert pages to fetch) and an expert half (the routed FFN over
@@ -262,7 +275,7 @@ def _paged_applies(cfg: ModelConfig, mk: str) -> dict:
 
     def mixer_half(params, h):
         hn = rms_norm(h, params["norm_mixer"], cfg.rms_eps)
-        return h + apply_mixer(cfg, mk, params, hn)
+        return h + apply_mixer(cfg, block_kinds(params)[0], params, hn)
 
     def block_route(params, h):
         hmid = mixer_half(params, h)

@@ -99,8 +99,9 @@ class OffloadableModel:
     # block into a routing half (the device computes the expert assignment
     # the host reads back) and an expert half (consumes the routed expert
     # stacks the ExpertFetchOp staged).  ``expert_meta`` maps MoE unit
-    # name -> {"n_experts": E, "experts": [(gate, up, down) param-name
-    # triples in stack order]}; units absent from it stream densely.
+    # name -> {"n_experts": E (the pages), "experts": [(gate, up, down)
+    # param-name triples in stack order], "held": the router's ids
+    # [first, end) of those pages}; units absent from it stream densely.
     #   block_route(params, h)                       -> hmid, idx
     #   block_moe(params, gate, up, down, idx, hmid) -> h
     #   block_moe_bwd(params, gate, up, down, idx, h, dh)

@@ -301,6 +301,8 @@ class OverlapStats:
     expert_routed_pairs: int = 0   # (token, choice) pairs routed forward
     expert_dropped_pairs: int = 0  # ... of them past their expert's
     #                                capacity: sum_e max(0, count_e - C)
+    expert_unheld_pairs: int = 0   # pairs routed to experts held on other
+    #                                chips (the two above count held ones)
     optim_prefetch_wait_seconds: float = 0.0  # Adam blocked on staged state
     adam_stage_seconds: float = 0.0       # the Adam's unit tasks, whole
     adam_update_seconds: float = 0.0      # adam_update arithmetic
@@ -357,4 +359,5 @@ class OverlapStats:
                 "expert_route_readback_seconds":
                     self.expert_route_readback_seconds,
                 "expert_routed_pairs": self.expert_routed_pairs,
-                "expert_dropped_pairs": self.expert_dropped_pairs, **worker}
+                "expert_dropped_pairs": self.expert_dropped_pairs,
+                "expert_unheld_pairs": self.expert_unheld_pairs, **worker}

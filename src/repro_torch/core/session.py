@@ -375,6 +375,7 @@ class OffloadSession:
         # so a mid-construction failure still finds them on close().
         self.overlap = policy.overlap
         self._ostats = OverlapStats()
+        self._kda = trace.KDALedger()
         self._optim_lock = threading.Lock()
         self._optim_futures: dict[str, Future] = {}  # guarded-by: _optim_lock
         self._device_slots: DeviceSlots | None = None
@@ -1299,15 +1300,21 @@ class OffloadSession:
         with trace.timed(self._ostats, "expert_route_readback_seconds",
                          "expert.route_readback", unit=unit):
             host = idx.cpu().numpy()
-        state.expert_route[unit] = host.reshape(-1)
+        # the ids are global; this chip's pages are its held experts',
+        # counted from the first
+        meta = self._expert_meta[unit]
+        lo, hi = meta["held"]
+        flat = host.reshape(-1)
+        state.expert_route[unit] = flat[(flat >= lo) & (flat < hi)] - lo
         capacity = self.model.expert_capacity
         if capacity is None:
             return
-        n_experts = self._expert_meta[unit]["n_experts"]
         # a verify window's (B, K, k) ids route each position on its own
         for ids in (host.swapaxes(0, 1) if host.ndim == 3 else (host,)):
-            counts = np.bincount(ids.reshape(-1), minlength=n_experts)
-            self._ostats.expert_routed_pairs += ids.size
+            mine = ids[(ids >= lo) & (ids < hi)] - lo
+            counts = np.bincount(mine, minlength=meta["n_experts"])
+            self._ostats.expert_unheld_pairs += ids.size - mine.size
+            self._ostats.expert_routed_pairs += mine.size
             self._ostats.expert_dropped_pairs += int(np.maximum(
                 counts - capacity(ids.shape[0]), 0).sum())
 
@@ -1326,10 +1333,11 @@ class OffloadSession:
             raise RuntimeError("session is closed")
         state.step = self._runs
         self._runs += 1
-        if self.device.type == "cuda":
-            with torch.cuda.stream(self._compute_stream):
-                return self._execute(plan, state)
-        return self._execute(plan, state)
+        with trace.counting(self._kda):
+            if self.device.type == "cuda":
+                with torch.cuda.stream(self._compute_stream):
+                    return self._execute(plan, state)
+            return self._execute(plan, state)
 
     def _execute(self, plan: StreamPlan, state: _ExecState) -> _ExecState:  # thread: executor
         fetch_order = plan.fetch_order
@@ -2230,5 +2238,6 @@ class OffloadSession:
         """Point-in-time copy of the overlap-pipeline stall counters
         (:class:`~repro_torch.core.overlap.OverlapStats`), including the
         staged-KV numbers serving cares about: ``kv_stage_gets`` /
-        ``_hits`` and ``kv_stage_wait_seconds``."""
-        return self._ostats.snapshot()
+        ``_hits`` and ``kv_stage_wait_seconds``, and the KDA mixer's
+        counters (:class:`~repro_torch.core.trace.KDALedger`)."""
+        return {**self._ostats.snapshot(), **self._kda.snapshot()}

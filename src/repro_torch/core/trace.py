@@ -42,13 +42,24 @@ Thread and boundary of each span:
   copies), inside it on the card ``h2d.copy_wait`` (the wait for the
   copy's event);
 * gradient writer: ``grad_write`` (a unit's gradients landed on the
-  host), ``overflow_screen`` (its Inf/NaN screen).
+  host), ``overflow_screen`` (its Inf/NaN screen);
+* executor, in a block's apply: ``kda.fwd`` (one chunked KDA forward,
+  the backward's recompute of the block included) and ``kda.bwd`` (its
+  backward over the kept graph).
+
+Beside the spans, a :class:`KDALedger` counts the KDA mixer's chunked
+forwards (``kda_calls``), their tokens (``kda_tokens``) and the device
+seconds of ``kda.fwd`` and ``kda.bwd`` (``kda_device_seconds``).  Each
+session owns one and makes it its executor's ledger (:func:`counting`)
+while it runs a plan; its ``overlap_snapshot()`` carries the counters.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import threading
 import time
 
 import torch
@@ -72,7 +83,7 @@ SPANS = (
     "adam.write_wait", "adam.read", "adam.staging_acquire",
     "adam.store_read", "adam.write",
     "h2d.stage", "swap.wait", "h2d.copy", "h2d.copy_wait",
-    "grad_write", "overflow_screen",
+    "grad_write", "overflow_screen", "kda.fwd", "kda.bwd",
 )
 _NAMES = frozenset(SPANS)
 
@@ -107,3 +118,70 @@ def timed(stats, counter: str, name: str, **ids):
     with span(name, **ids):
         yield
     stats.add_worker_seconds(counter, time.perf_counter() - t0)
+
+
+class KDALedger:
+    """The KDA mixer's chunked forwards, their tokens and the device
+    seconds of its spans.  :meth:`timed` opens a span and, on the card,
+    records CUDA events on the current (compute) stream around it; a pair
+    of events is summed once both have completed, with no synchronisation
+    added (the pairs still running wait for a later :meth:`snapshot`).
+    On the CPU only the calls and tokens move."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.calls = 0
+        self.tokens = 0
+        self.device_seconds = 0.0
+        self._pending: collections.deque = collections.deque()
+
+    @contextlib.contextmanager
+    def timed(self, name: str, device, *, tokens: int | None = None):
+        """The span ``name``; ``tokens`` (where given) counts one call of
+        that many tokens."""
+        cuda = torch.device(device).type == "cuda"
+        with span(name):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            yield
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+        with self._lock:
+            if tokens is not None:
+                self.calls += 1
+                self.tokens += tokens
+            if cuda:
+                self._pending.append((start, end))
+            self._settle()
+
+    def _settle(self) -> None:
+        while self._pending and self._pending[0][1].query():
+            start, end = self._pending.popleft()
+            self.device_seconds += start.elapsed_time(end) / 1e3
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            self._settle()
+            return {"kda_calls": self.calls, "kda_tokens": self.tokens,
+                    "kda_device_seconds": self.device_seconds}
+
+
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def counting(ledger: KDALedger):
+    """Make ``ledger`` this thread's KDA ledger inside the block."""
+    outer = getattr(_counting, "ledger", None)
+    _counting.ledger = ledger
+    try:
+        yield
+    finally:
+        _counting.ledger = outer
+
+
+def kda_ledger() -> KDALedger | None:
+    """This thread's KDA ledger (:func:`counting`), or None."""
+    return getattr(_counting, "ledger", None)

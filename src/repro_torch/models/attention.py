@@ -327,7 +327,7 @@ def _attend_step(q, k_new, v_new, k_cache, v_cache, cl_col, cfg, *, chunk,
 def mla_project_q(params, x, cfg, positions):
     """Queries through the q latent, or through one ``w_q`` where the
     config has none (``q_lora_rank`` None): (B, S, H, nope + rope), the
-    rope half rotated."""
+    rope half rotated (unless the config has no rope)."""
     m = cfg.mla
     if m.q_lora_rank is None:
         q = dense(x, params["attn.w_q"])
@@ -337,6 +337,8 @@ def mla_project_q(params, x, cfg, positions):
             q_lat = rms_norm(q_lat, params["attn.q_lat_norm"], cfg.rms_eps)
         q = dense(q_lat, params["attn.w_uq"])
     q = split_heads(q, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if not m.use_rope:
+        return q
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
                              dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -345,10 +347,13 @@ def mla_project_q(params, x, cfg, positions):
 
 def mla_compress_kv(params, x, cfg, positions):
     """The cached latent: (c_kv (B, S, kv_rank), k_rope (B, S, rope)), the
-    one rope head shared by every query head."""
+    one rope head shared by every query head (left unrotated where the
+    config has no rope)."""
     m = cfg.mla
     ckv = whole_last(dense(x, params["attn.w_dkv"]))         # (B,S,rank+rope)
     c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    if not m.use_rope:
+        return c_kv, k_rope
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope

@@ -157,8 +157,10 @@ def _capacity(cfg, t: int) -> int:
 def moe_ffn(params, x, cfg, idx=None):
     """Routed expert FFN (+ shared experts).  x: (B, S, D) -> (B, S, D).
 
-    params: moe.w_router (D, E), moe.w_gate / moe.w_up (E, D, F) each,
-    moe.w_down (E, F, D); optionally moe.shared_gate/up/down; the sigmoid
+    params: moe.w_router (D, E), moe.w_gate / moe.w_up (E_held, D, F)
+    each, moe.w_down (E_held, F, D) — the experts ``MoEConfig.held``
+    names, all E by default; the output is their part of the routed
+    result (expert parallelism's share of one chip); optionally moe.shared_gate/up/down; the sigmoid
     gate's moe.router_bias (E,).  Returns
     (out, aux_loss).
 
@@ -183,11 +185,15 @@ def moe_ffn(params, x, cfg, idx=None):
     w, flat_e, pos, aux = _route(router_logits(xf, params, cfg), params,
                                  cfg, idx)
     capacity = _capacity(cfg, t)
-    keep = pos < capacity
-    # row of each (token, choice) in the flat (E*C, D) buffers; dropped
-    # pairs go to the scratch row E*C, which nothing reads
-    scratch = e.n_experts * capacity
-    row = torch.where(keep, flat_e * capacity + pos,
+    # the held experts [lo, hi) are computed; pairs routed elsewhere are
+    # another chip's, neither computed here nor dropped
+    lo, hi = e.held_range
+    keep = (pos < capacity) & (flat_e >= lo) & (flat_e < hi)
+    # row of each (token, choice) in the flat (E_held*C, D) buffers;
+    # dropped and unheld pairs go to the scratch row E_held*C, which
+    # nothing reads
+    scratch = e.n_held * capacity
+    row = torch.where(keep, (flat_e - lo) * capacity + pos,
                       torch.full_like(pos, scratch))
 
     # dispatch: each token's activations repeated for its k choices (an
@@ -195,7 +201,7 @@ def moe_ffn(params, x, cfg, idx=None):
     # the kept rows
     rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
     dispatched = x.new_zeros((scratch + 1, d)).index_put(
-        (row,), rep)[:scratch].reshape(e.n_experts, capacity, d)
+        (row,), rep)[:scratch].reshape(e.n_held, capacity, d)
 
     # expert compute: gated MLP per expert, batched over E
     up = _bmm(dispatched, params["moe.w_up"])
@@ -246,6 +252,9 @@ def _moe_ffn_meshed(params, x, cfg, idx=None):
     the one-card step computes from the same products."""
     mesh = x.device_mesh
     e = cfg.moe
+    if e.held is not None:
+        raise NotImplementedError(f"{cfg.name}: the meshed MoE holds every "
+                                  f"expert")
     if e.scoring != "softmax":
         raise NotImplementedError(f"{cfg.name}: the meshed MoE routes by "
                                   f"softmax only")

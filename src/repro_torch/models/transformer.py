@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from . import kda as kda_mod
 from . import mamba as mamba_mod
 from . import xlstm as xlstm_mod
 from .dist import replicated, roll_seq
@@ -46,6 +47,8 @@ from .moe import moe_ffn
 # ---------------------------------------------------------------------------
 
 def mixer_kind(cfg: ModelConfig, layer: int) -> str:
+    if cfg.kda is not None:
+        return "mla" if cfg.is_attention_layer(layer) else "kda"
     if cfg.family == "ssm":
         if cfg.ssm.kind == "xlstm":
             return "slstm" if layer % cfg.ssm.slstm_every == \
@@ -63,7 +66,16 @@ def ffn_kind(cfg: ModelConfig, layer: int) -> str:
 
 
 def layer_period(cfg: ModelConfig) -> int:
-    """The period of the layers after the leading dense ones."""
+    """The period of the layers after the leading dense ones (where the
+    kinds come from published layer lists, the shortest that repeats
+    them and divides the layers)."""
+    if cfg.kda is not None:
+        n, lead = cfg.n_layers - cfg.first_dense_layers, cfg.first_dense_layers
+
+        def kinds(i):
+            return mixer_kind(cfg, lead + i), ffn_kind(cfg, lead + i)
+        return next(p for p in range(1, n + 1) if n % p == 0 and all(
+            kinds(i) == kinds(i % p) for i in range(n)))
     p = math.lcm(cfg.attn_period, cfg.moe_period)
     if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
         p = math.lcm(p, cfg.ssm.slstm_every)
@@ -118,6 +130,8 @@ def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
                             cfg.n_heads * (m.qk_nope_head_dim
                                            + m.v_head_dim)), fan_in_),
             ("attn.w_o", (cfg.n_heads * m.v_head_dim, d), fan_in_)]
+    elif mk == "kda":
+        specs += kda_param_specs(cfg)
     elif mk == "mamba":
         specs += mamba_mod.param_specs(cfg)
     elif mk == "mlstm":
@@ -136,15 +150,46 @@ def layer_param_specs(cfg: ModelConfig, layer: int) -> list:
         specs.append(("moe.w_router", (d, e.n_experts), fan_in_))
         if e.scoring == "sigmoid":
             specs.append(("moe.router_bias", (e.n_experts,), _bias_))
-        specs += [("moe.w_gate", (e.n_experts, d, e.d_ff_expert), fan_in_),
-                  ("moe.w_up", (e.n_experts, d, e.d_ff_expert), fan_in_),
-                  ("moe.w_down", (e.n_experts, e.d_ff_expert, d), fan_in_)]
+        # the held experts' stacks (all of them unless the config holds
+        # a share)
+        specs += [("moe.w_gate", (e.n_held, d, e.d_ff_expert), fan_in_),
+                  ("moe.w_up", (e.n_held, d, e.d_ff_expert), fan_in_),
+                  ("moe.w_down", (e.n_held, e.d_ff_expert, d), fan_in_)]
         if e.n_shared:
             f = e.n_shared * e.d_ff_expert
             specs += [("moe.shared_gate", (d, f), fan_in_),
                       ("moe.shared_up", (d, f), fan_in_),
                       ("moe.shared_down", (f, d), fan_in_)]
     return specs
+
+
+def kda_param_specs(cfg: ModelConfig) -> list:
+    """The KDA mixer's parameters (:mod:`repro_torch.models.kda`): the
+    projections and output by fan-in, the conv taps by theirs, A = U[1,
+    16] with A_log = log A, dt_bias the inverse softplus of dt
+    log-uniform in [1e-3, 1e-1], the output gate's bias and norm 0."""
+    k, d = cfg.kda, cfg.d_model
+    w, r = k.width, k.head_dim
+    specs = [(f"kda.w_{x}", (d, w), fan_in_) for x in "qkv"]
+    specs += [(f"kda.conv_{x}", (k.conv_kernel, w), fan_in_) for x in "qkv"]
+    return specs + [
+        ("kda.w_fa", (d, r), fan_in_), ("kda.w_fb", (r, w), fan_in_),
+        ("kda.a_log", (k.n_heads,), _a_log_),
+        ("kda.dt_bias", (w,), _dt_bias_),
+        ("kda.w_b", (d, k.n_heads), fan_in_),
+        ("kda.w_ga", (d, r), fan_in_), ("kda.w_gb", (r, w), fan_in_),
+        ("kda.b_gb", (w,), zeros_), ("kda.o_norm", (k.head_dim,), zeros_),
+        ("kda.w_o", (w, d), fan_in_)]
+
+
+def _a_log_(generator: torch.Generator, out):
+    return out.uniform_(1.0, 16.0, generator=generator).log_()
+
+
+def _dt_bias_(generator: torch.Generator, out):
+    dt = out.uniform_(math.log(1e-3), math.log(1e-1),
+                      generator=generator).exp_()
+    return dt.add_(torch.log(-torch.expm1(-dt)))
 
 
 def _bias_(generator: torch.Generator, out):
@@ -264,6 +309,9 @@ def apply_mixer(cfg: ModelConfig, mk: str, params, hn, *,
                              prefix_len=prefix_len)
     if mk == "mla":
         return mla_attention(params, hn, cfg, causal=causal)
+    if mk == "kda":
+        return replicated(lambda p, x: kda_mod.kda_mixer(p, x, cfg),
+                          _prefixed(params, "kda"), hn, batch=(1,))
     if mk in _RECURRENT:
         # the scans' views, einsums and indexing have no sharding
         # propagation: on a mesh each rank runs its own batch rows whole
